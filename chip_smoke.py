@@ -1,0 +1,554 @@
+"""Drive the PyTorch port's main path on one CUDA card and hold its kernels
+against their plain PyTorch versions.
+
+    python3 chip_smoke.py
+
+Run from the repository root; it needs one CUDA card and nvcc, and exits
+non-zero without them.  It builds the kernels of ``ugaitnet_tpu_torch/csrc``
+and runs, at the full width of the flagship (two GaitSet branches at
+channels (32, 64, 128), part_dim 256, 62 parts, sign_max merge, 74 classes):
+
+  1. kernels vs plain: the CUDA batch-all triplet forward and backward
+     against ``ops/triplet.py`` on the same CUDA tensors, at the flagship
+     (62, 120, 256), small and degenerate cases, B = 256 and B = 512;
+     kernel and plain times at the flagship shape, B = 256 and B = 512;
+  2. embed: preprocess_batch on raw int16 OF / uint8 gray at B = 128, then
+     the forward, in float32 and bfloat16 (inputs perturbed every batch);
+  3. train (the main path): raw B = 40 (8 ids x 5) -> preprocess with
+     expand 3 (B = 120) -> Adam steps with the batch_all kernel; launch
+     counts are set to 0 just before and read just after; one step from
+     the same state with the plain triplet must give the same losses and
+     the same gradient at the signature;
+  4. checks: use_flag = 0 equals a noise-filled input exactly, and the card's
+     forward agrees with the CPU's on a small batch (and with TF32 on, does
+     not).
+
+Gradient limits scale with each case, and every run reads planted faults
+(a backward without the g^T term, with the negative role's sign flipped,
+or returning zeros) against them: a limit that passes a fault fails the run.
+
+Prints the card (nvidia-smi name and power limit), one JSON line with every
+kernel's launches, error, times and bound, and as the last line
+{"ok": true, "device": {...}}.  Any failed check raises: exit code != 0.
+TF32 is off for matmuls and convolutions throughout (parity), apart from
+the one forward of phase 4 that shows the card-vs-CPU limit would catch it.
+"""
+
+import copy
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+# H100 SXM published peaks (NVIDIA data sheet, 700 W): HBM bytes/s and the
+# float32 rate outside the tensor cores, which these kernels use.
+PEAK_BYTES = 3.35e12
+PEAK_FP32 = 67e12
+
+VAL_RTOL = 1e-5                  # loss values: float32 sums in another order
+# gradients, per case: max |kernel - plain| <= GRAD_REL * max |plain|.  The
+# limit scales with the case, since batch-all gradients shrink as 1/count;
+# every run also reads planted faults against it (analytic_grad) and fails
+# unless each lies above it.
+GRAD_REL = 1e-2
+STEP_RTOL = 1e-5                 # train-step losses, kernel vs plain triplet
+# card vs CPU forward, float32 with TF32 off: max |card - CPU| <= CPU_REL *
+# max |CPU| per output.  cuDNN's FFT and implicit-GEMM convolutions round
+# differently from the CPU's direct sums; every run also reads the card with
+# TF32 on and fails unless that lies above the limit.
+CPU_REL = 3e-4
+FAULTS = ("g^T dropped", "negative sign", "zeros")
+
+SRC = "ugaitnet_tpu_torch/csrc/triplet_kernel.cu"
+FWD_KERNELS = ("dist_kernel", "fwd_kernel")
+BWD_KERNELS = ("grow_kernel", "finish_kernel")
+PALLAS = "ugaitnet_tpu/ops/pallas/triplet_kernel.py"
+
+
+def check(cond, msg):
+    if not cond:
+        raise RuntimeError(f"check failed: {msg}")
+
+
+def cuda_ms(fn, iters=20, warmup=3):
+    """Mean device time of fn() in ms, by CUDA events around `iters` calls."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def kernel_events(fn, iters):
+    """Device events (name, us) of `iters` calls of fn() under
+    torch.profiler, and the host-clock window they ran in (us)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e6
+    events = [(e.name, e.time_range.elapsed_us()) for e in prof.events()
+              if e.device_type == DeviceType.CUDA]
+    return events, wall
+
+
+def device_ms(fn, names, iters=20):
+    """Device time per call (ms) of each kernel whose name contains one of
+    `names` (the wrapper's host work excluded); {} if the profiler saw none
+    of them."""
+    events, _ = kernel_events(fn, iters)
+    out = {}
+    for k in names:
+        us = sum(t for n, t in events if k in n)
+        if us > 0:
+            out[k] = us / iters / 1e3
+    return out
+
+
+def n_valid_triplets(labels, parts):
+    """(a, p, n) with lab[p] == lab[a] (p == a included), lab[n] != lab[a]."""
+    lab = labels.cpu().numpy()
+    _, counts = np.unique(lab, return_counts=True)
+    b = len(lab)
+    return parts * int(np.sum(counts * counts * (b - counts)))
+
+
+def bound(nbytes, nops):
+    t_bytes, t_ops = nbytes / PEAK_BYTES, nops / PEAK_FP32
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def rel_err(got, want):
+    """max |got - want| over max |want|."""
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def analytic_grad(x, lab, fault=None, margin=0.2):
+    """dL/dx of the batch-all loss in its analytic form, in torch ops, with
+    one planted fault or none: the gradient a broken backward kernel would
+    give.  g[a, m] = #active(a, p=m) - #active(a, n=m), scaled by
+    1 / (count * P); dx_i = sum_j (g[i,j] + g[j,i]) / d[i,j] (x_i - x_j)."""
+    from ugaitnet_tpu_torch.ops.triplet import pairwise_dist
+    e = (x[None] if x.ndim == 2 else x.transpose(0, 1)).float()
+    d = pairwise_dist(e)
+    same = lab[:, None] == lab[None, :]
+    valid = same[:, :, None] & ~same[:, None, :]
+    act = ((margin + d[:, :, :, None] - d[:, :, None, :]) > 0) & valid
+    cnt = act.sum((1, 2, 3)).float()
+    scale = torch.where(cnt > 0, 1.0 / (cnt.clamp_min(1) * e.shape[0]),
+                        torch.zeros_like(cnt))
+    pos, neg = act.sum(3).float(), act.sum(2).float()
+    g = (pos + neg if fault == "negative sign" else pos - neg)
+    g = g * scale[:, None, None]
+    w = g if fault == "g^T dropped" else g + g.transpose(1, 2)
+    w = torch.where(d > 0, w / torch.where(d > 0, d, torch.ones_like(d)),
+                    torch.zeros_like(w))
+    dx = w.sum(-1, keepdim=True) * e - w @ e
+    if fault == "zeros":
+        dx = torch.zeros_like(dx)
+    return dx[0] if x.ndim == 2 else dx.transpose(0, 1)
+
+
+def fault_readings(x, lab, want):
+    """rel_err against `want` of the analytic gradient, unfaulted (which
+    must sit under GRAD_REL, or the fault model is wrong) and with each
+    planted fault (each must sit above it)."""
+    return {f or "none": rel_err(analytic_grad(x, lab, f), want)
+            for f in (None,) + FAULTS}
+
+
+def check_faults(name, kernel_err, faults):
+    print(f"  {name}: kernel {kernel_err:.2e}, analytic {faults['none']:.2e}"
+          f" <= {GRAD_REL}; planted faults "
+          + ", ".join(f"{f} {faults[f]:.2e}" for f in FAULTS)
+          + f" > {GRAD_REL}")
+    check(kernel_err <= GRAD_REL and faults["none"] <= GRAD_REL,
+          f"{name}: gradient")
+    check(all(faults[f] > GRAD_REL for f in FAULTS),
+          f"{name}: a planted fault reads under the limit")
+
+
+def main():
+    if not torch.cuda.is_available():
+        sys.exit("chip_smoke: no CUDA device")
+    from ugaitnet_tpu_torch.core.config import (BranchConfig, DataConfig,
+                                                ModelConfig, TrainConfig)
+    from ugaitnet_tpu_torch.data.pipeline import preprocess_batch
+    from ugaitnet_tpu_torch.models.network import UGaitNet
+    from ugaitnet_tpu_torch.ops.cuda import build
+    from ugaitnet_tpu_torch.ops.cuda import triplet_kernel as K
+    from ugaitnet_tpu_torch.ops.triplet import batch_all_triplet_loss
+    from ugaitnet_tpu_torch.train.train_step import (Batch, init_state,
+                                                     make_train_step)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    print(f"card: {card}")
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"python {sys.version.split()[0]}")
+
+    t0 = time.perf_counter()
+    build.load("triplet_kernel")
+    print(f"kernel build: {time.perf_counter() - t0:.1f} s")
+    with open(f"{build.BUILD_DIR}/triplet_kernel.log") as f:
+        ptxas = [ln.strip() for ln in f if "registers" in ln or
+                 "Compiling entry" in ln]
+    print("ptxas: " + " | ".join(ptxas))
+
+    # ---- 1. kernels vs plain ---------------------------------------------
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def case(parts, b, d, labels):
+        shape = (b, d) if parts is None else (b, parts, d)
+        x = torch.randn(shape, device=dev, generator=gen)
+        lab = torch.as_tensor(labels, dtype=torch.int32, device=dev)
+        xp = x.clone().requires_grad_(True)
+        vp = batch_all_triplet_loss(xp, lab)
+        vp.backward()
+        xk = x.clone().requires_grad_(True)
+        vk = K.batch_all_triplet_loss_cuda(xk, lab)
+        vk.backward()
+        torch.cuda.synchronize()
+        check(torch.isfinite(xk.grad).all(), "kernel gradient not finite")
+        return x, lab, float(vp.detach()), float(vk.detach()), xk.grad, xp.grad
+
+    def kernel_times(x, lab):
+        """Device ms of each kernel (torch.profiler), the wrapper calls'
+        CUDA-event ms, the plain version's ms and the bounds."""
+        p_, b_, d_ = x.shape[1], x.shape[0], x.shape[2]
+        dist, _, pcnt = K.launch_fwd(x, lab, 0.2)
+        scale = torch.where(pcnt > 0, 1.0 / (pcnt.clamp_min(1.0) * p_),
+                            torch.zeros_like(pcnt)).contiguous()
+        fwd = lambda: K.launch_fwd(x, lab, 0.2)
+        bwd = lambda: K.launch_bwd(x, lab, dist, scale, 0.2)
+        t = {"fwd_dev": device_ms(fwd, FWD_KERNELS),
+             "bwd_dev": device_ms(bwd, BWD_KERNELS),
+             "fwd_call_ms": cuda_ms(fwd), "bwd_call_ms": cuda_ms(bwd)}
+        check(set(t["fwd_dev"]) == set(FWD_KERNELS) and
+              set(t["bwd_dev"]) == set(BWD_KERNELS),
+              f"the profiler saw no device time of some kernel: {t}")
+        t["fwd_ms"] = sum(t["fwd_dev"].values())
+        t["bwd_ms"] = sum(t["bwd_dev"].values())
+        with torch.no_grad():
+            t["plain_fwd_ms"] = cuda_ms(lambda: batch_all_triplet_loss(x, lab),
+                                        10)
+        xq = x.clone().requires_grad_(True)
+        loss_q = batch_all_triplet_loss(xq, lab)
+        t["plain_bwd_ms"] = cuda_ms(lambda: torch.autograd.grad(
+            loss_q, xq, retain_graph=True), 10)
+        nv = n_valid_triplets(lab, p_)
+        xbytes = x.numel() * 4
+        # forward: the symmetric half of the Gram matrix (its diagonal holds
+        # the norms), 2 flops per multiply-add, + 3 per valid triplet
+        t["fwd_bound"] = bound(xbytes + b_ * 4 + 4,
+                               p_ * b_ * (b_ + 1) * d_ + 3 * nv)
+        # backward: W x, a (B, B) by (B, D) product per part, + 2 per triplet
+        t["bwd_bound"] = bound(2 * xbytes + p_ * b_ * b_ * 4 + b_ * 4,
+                               2 * p_ * b_ * b_ * d_ + 2 * nv)
+        t["valid_triplets"] = nv
+        print(f"kernel times {tuple(x.shape)} ({nv} valid triplets): device "
+              f"(torch.profiler) fwd {t['fwd_dev']} ms, bwd {t['bwd_dev']} ms;"
+              f" wrapper call (CUDA events) fwd {t['fwd_call_ms']:.4f} ms, bwd"
+              f" {t['bwd_call_ms']:.4f} ms; plain fwd {t['plain_fwd_ms']:.4f} "
+              f"ms, plain bwd {t['plain_bwd_ms']:.4f} ms; bound fwd "
+              f"{t['fwd_bound'][0]:.4f} ms ({t['fwd_bound'][1]}), bwd "
+              f"{t['bwd_bound'][0]:.4f} ms ({t['bwd_bound'][1]}) [{card}]")
+        return t
+
+    pk = lambda n: np.repeat(np.arange(n[0]), n[1])          # P x K labels
+    cases = [("flagship", 62, 120, 256, pk((12, 10))),
+             ("small", 1, 12, 8, pk((3, 4))),
+             ("rank2", None, 10, 8, pk((5, 2))),
+             ("B256", 16, 256, 256, np.arange(256) % 10),
+             ("B512", 4, 512, 256, np.arange(512) % 10)]
+    results, times = {}, {}
+    for name, parts, b, d, labels in cases:
+        x, lab, vp, vk, gk, gp = case(parts, b, d, labels)
+        rel = abs(vk - vp) / abs(vp)
+        gerr = rel_err(gk, gp)
+        print(f"kernel vs plain {name} {tuple(x.shape)}: value {vk:.7f} vs "
+              f"{vp:.7f} (rel {rel:.2e}, tol {VAL_RTOL}); grad max abs err "
+              f"{float((gk - gp).abs().max()):.2e}, max |grad| "
+              f"{float(gp.abs().max()):.2e}")
+        results[name] = (vp, rel, gerr, fault_readings(x, lab, gp))
+        if name == "flagship":
+            fwd_err = abs(vk - vp)
+            bwd_err = float((gk - gp).abs().max())
+        if name in ("flagship", "B256", "B512"):
+            times[name] = kernel_times(x, lab)
+    print(f"gradient max |kernel - plain| / max |plain| (limit {GRAD_REL}), "
+          "and what planted faults read:")
+    for name, (vp, rel, gerr, faults) in results.items():
+        check(vp > 0 and rel <= VAL_RTOL, f"{name}: value")
+        check_faults(name, gerr, faults)
+    for name, labels in (("all-same", np.zeros(6)), ("all-distinct",
+                                                     np.arange(6))):
+        x, lab, vp, vk, gk, _ = case(2, 6, 8, labels)
+        print(f"kernel {name}: value {vk} (plain {vp}), grad max "
+              f"{float(gk.abs().max())}")
+        check(vk == 0.0 and vp == 0.0 and float(gk.abs().max()) == 0.0, name)
+    flag_t = times["flagship"]
+
+    # ---- full-width flagship ----------------------------------------------
+    def flagship(dtype="float32"):
+        return ModelConfig(
+            branches=(BranchConfig(kind="gaitset", modality="of"),
+                      BranchConfig(kind="gaitset", modality="gray")),
+            merge="sign_max", nclasses=74, compute_dtype=dtype)
+
+    dcfg = DataConfig()
+    mods = (("of", "gray"), (2, 1), (100.0, 1.0), 2)
+
+    def raw_batch(b, ids, seed):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        return {
+            "raw_of": torch.randint(-3000, 3000, (b, 50, 60, 60), device=dev,
+                                    generator=g, dtype=torch.int16),
+            "raw_gray": torch.randint(0, 255, (b, 25, 60, 60), device=dev,
+                                      generator=g, dtype=torch.uint8),
+            "present_of": torch.ones(b, device=dev),
+            "present_gray": torch.ones(b, device=dev),
+            "labels": torch.as_tensor(np.repeat(np.arange(ids), b // ids),
+                                      dtype=torch.int32, device=dev),
+        }
+
+    # ---- 2. embed ------------------------------------------------------------
+    raw = raw_batch(128, 1, seed=1)
+    embed = {}
+    for dtype in ("float32", "bfloat16"):
+        model = UGaitNet(flagship(dtype), seed=0)
+        model.eval()
+        iters = 10
+
+        def embed_once(i):
+            r = dict(raw)
+            r["raw_of"] = raw["raw_of"] ^ i
+            r["raw_gray"] = raw["raw_gray"] ^ i
+            vols, flags, _ = preprocess_batch(r, *mods, 1, False, dcfg)
+            return model(vols, flags)["signature"]
+
+        with torch.inference_mode():
+            sig = embed_once(0)
+            check(tuple(sig.shape) == (128, 62, 256), f"signature {sig.shape}")
+            check(bool(torch.isfinite(sig).all()), "signature not finite")
+            acc = torch.zeros((), device=dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(1, iters + 1):
+                acc += embed_once(i).sum()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3 / iters
+        check(bool(torch.isfinite(acc)), "embed checksum")
+        embed[dtype] = ms
+        print(f"embed {dtype}: preprocess + forward B=128 {ms:.2f} ms/batch,"
+              f" {128e3 / ms:.1f} clips/s [{card}]")
+        del model
+
+    # ---- 3. train: the main path -------------------------------------------
+    mcfg, tcfg = flagship(), TrainConfig()
+    check(tcfg.triplet_kind == "batch_all", "default triplet kind")
+    model = UGaitNet(mcfg, seed=0)
+    state = init_state(model, tcfg)
+    step = make_train_step(mcfg, tcfg)
+    raw = raw_batch(40, 8, seed=2)
+    mask_gen = torch.Generator().manual_seed(0)
+    nsteps = 4
+    step_ms, losses = [], []
+
+    def capture(net, store):
+        """Keep the signature of net's next forward and its gradient."""
+        def hook(_mod, _inp, out):
+            store["sig"] = out["signature"].detach()
+            out["signature"].register_hook(
+                lambda g: store.__setitem__("grad", g.detach().clone()))
+        return net.register_forward_hook(hook)
+
+    kstore, pstore = {}, {}
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    for i in range(nsteps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = dict(raw)
+        r["raw_of"] = raw["raw_of"] ^ i
+        r["raw_gray"] = raw["raw_gray"] ^ i
+        vols, flags, labels = preprocess_batch(r, *mods, 3, False, dcfg,
+                                               generator=mask_gen)
+        batch = Batch(tuple(vols), tuple(flags), labels)
+        if i == nsteps - 1:     # the state the plain step starts from
+            before = (copy.deepcopy(state.model.state_dict()),
+                      copy.deepcopy(state.optimizer.state_dict()))
+            hook = capture(state.model, kstore)
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append({k: float(v) for k, v in metrics.items()})
+    hook.remove()
+    launches = {"triplet_fwd": K.fwd_launches, "triplet_bwd": K.bwd_launches}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(tuple(vols[0].shape) == (120, 25, 60, 60, 2), "train batch")
+    for m in losses:
+        check(all(np.isfinite(v) for v in m.values()), f"train metrics {m}")
+    check(launches == {"triplet_fwd": nsteps, "triplet_bwd": nsteps},
+          f"kernel launches {launches} over {nsteps} steps")
+    train_ms = float(np.median(step_ms[1:]))
+    print(f"train: {nsteps} steps B=120, losses "
+          f"{[round(m['loss'], 6) for m in losses]}, launches {launches}, "
+          f"step {train_ms:.2f} ms (median of steps 2-{nsteps}; first "
+          f"{step_ms[0]:.1f} ms), peak {peak_gb:.1f} GB [{card}]")
+
+    plain_model = UGaitNet(mcfg, seed=0)
+    plain_model.load_state_dict(before[0])
+    plain_state = init_state(plain_model, tcfg)
+    plain_state.optimizer.load_state_dict(before[1])
+    plain_tcfg = TrainConfig(triplet_kind="batch_all_xla")
+    hook = capture(plain_model, pstore)
+    _, plain_metrics = make_train_step(mcfg, plain_tcfg)(plain_state, batch)
+    hook.remove()
+    for k in ("loss", "triplet"):
+        kv, pv = losses[-1][k], float(plain_metrics[k])
+        print(f"train step {k}: kernel {kv:.7f} plain {pv:.7f} "
+              f"(rel {abs(kv - pv) / abs(pv):.2e}, tol {STEP_RTOL})")
+        check(abs(kv - pv) <= STEP_RTOL * abs(pv), f"train step {k}")
+    # d loss / d signature in the two steps; it holds the CE term too, so a
+    # planted fault reads as (its triplet gradient - the plain one) against
+    # the whole plain gradient
+    g_total, sig = pstore["grad"], pstore["sig"]
+    w_tri = tcfg.loss_weights[0]
+    s_ = sig.clone().requires_grad_(True)
+    g_tri = w_tri * torch.autograd.grad(
+        batch_all_triplet_loss(s_, labels, tcfg.margin), s_)[0]
+    sig_err = rel_err(kstore["grad"], g_total)
+    sig_faults = {f or "none": rel_err(
+        g_total - g_tri + w_tri * analytic_grad(sig, labels, f, tcfg.margin),
+        g_total) for f in (None,) + FAULTS}
+    print(f"train step d loss / d signature {tuple(sig.shape)}, kernel step "
+          f"vs plain step: max |grad| {float(g_total.abs().max()):.2e}, of "
+          f"which the triplet term {float(g_tri.abs().max()):.2e}")
+    check_faults("signature gradient", sig_err, sig_faults)
+
+    # where the time of a float32 step goes (launch counts already read)
+    def one_step():
+        step(state, batch)
+    events, wall = kernel_events(one_step, 2)
+    by_name = {}
+    for n, t in events:
+        by_name[n] = by_name.get(n, 0.0) + t
+    busy = sum(by_name.values())
+    tri = sum(t for n, t in by_name.items()
+              if any(k in n for k in FWD_KERNELS + BWD_KERNELS))
+    print(f"train step profile (2 steps, float32): device busy "
+          f"{busy / 2e3:.2f} ms/step of {wall / 2e3:.2f} ms wall (idle share "
+          f"{1 - busy / wall:.3f}); triplet kernels {tri / 2e3:.4f} ms/step")
+    for n, t in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
+        print(f"  {t / 2e3:9.3f} ms/step {t / busy:6.1%}  {n[:90]}")
+
+    bf_cfg = flagship("bfloat16")
+    bf_state = init_state(UGaitNet(bf_cfg, seed=0), tcfg)
+    bf_step = make_train_step(bf_cfg, tcfg)
+    bf_ms = []
+    for i in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, m = bf_step(bf_state, batch)
+        torch.cuda.synchronize()
+        bf_ms.append((time.perf_counter() - t0) * 1e3)
+        check(np.isfinite(float(m["loss"])), "bf16 train loss")
+    bf_train_ms = float(np.median(bf_ms[1:]))
+    print(f"train bfloat16: step {bf_train_ms:.2f} ms (median of steps 2-4,"
+          f" same batch, preprocess excluded) [{card}]")
+    del bf_state
+
+    # ---- 4. checks on the full-width forward --------------------------------
+    model = state.model
+    model.eval()
+    g = torch.Generator(device=dev).manual_seed(3)
+    of = torch.randn(4, 25, 60, 60, 2, device=dev, generator=g)
+    gray = torch.randn(4, 25, 60, 60, 1, device=dev, generator=g)
+    off = [torch.ones(4, device=dev), torch.zeros(4, device=dev)]
+    with torch.inference_mode():
+        a = model([of, gray], off)["signature"]
+        b = model([of, torch.full_like(gray, dcfg.noise)], off)["signature"]
+        check(torch.equal(a, b), "use_flag=0 differs from noise input")
+        print("missing modality: use_flag=0 signature == noise-input "
+              "signature (exact)")
+        small = preprocess_batch(raw_batch(4, 2, seed=4), *mods, 1, False,
+                                 dcfg)
+        cpu_model = copy.deepcopy(model).to("cpu")
+        on_cpu = cpu_model([v.cpu() for v in small[0]],
+                           [f.cpu() for f in small[1]])
+
+    def card_vs_cpu(tf32):
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        torch.backends.cudnn.allow_tf32 = tf32
+        with torch.inference_mode():
+            out = model(small[0], small[1])
+        return {k: rel_err(out[k].cpu(), on_cpu[k])
+                for k in ("signature", "classprob_logits")}
+    cpu_err, tf32_err = card_vs_cpu(False), card_vs_cpu(True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    for k in cpu_err:
+        print(f"card vs CPU forward {k}: max |card - CPU| / max |CPU| "
+              f"{cpu_err[k]:.2e} <= {CPU_REL}; with TF32 on {tf32_err[k]:.2e}"
+              f" > {CPU_REL}")
+        check(cpu_err[k] <= CPU_REL, f"card vs CPU {k}")
+        check(tf32_err[k] > CPU_REL, f"card vs CPU {k}: TF32 passes the limit")
+
+    kernels = [
+        {"name": "triplet_fwd", "route": "cuda", "source": SRC,
+         "replaces": f"{PALLAS}:159", "launches": launches["triplet_fwd"],
+         "max_abs_err": fwd_err, "ms": flag_t["fwd_ms"],
+         "plain_ms": flag_t["plain_fwd_ms"],
+         "bound_ms": flag_t["fwd_bound"][0],
+         "bound_by": flag_t["fwd_bound"][1],
+         "library_ms": None},
+        {"name": "triplet_bwd", "route": "cuda", "source": SRC,
+         "replaces": f"{PALLAS}:187", "launches": launches["triplet_bwd"],
+         "max_abs_err": bwd_err, "ms": flag_t["bwd_ms"],
+         "plain_ms": flag_t["plain_bwd_ms"],
+         "bound_ms": flag_t["bwd_bound"][0],
+         "bound_by": flag_t["bwd_bound"][1],
+         "library_ms": None},
+    ]
+    print(json.dumps({"card": card, "embed_ms_per_batch": embed,
+                      "train_step_ms": train_ms,
+                      "train_step_bf16_ms": bf_train_ms,
+                      "train_device_busy_ms": busy / 2e3,
+                      "train_wall_ms": wall / 2e3,
+                      "train_peak_gb": peak_gb,
+                      "triplet_times": times,
+                      "grad_rel_err": {k: {"kernel": v[2], **v[3]}
+                                       for k, v in results.items()},
+                      "signature_grad_rel_err": {"kernel": sig_err,
+                                                 **sig_faults},
+                      "card_vs_cpu_rel_err": {"tf32_off": cpu_err,
+                                              "tf32_on": tf32_err}}))
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,78 @@
+"""The CUDA batch-all triplet kernel against the port's plain version, on
+the card.  Imports no JAX, so it runs where only the port is installed:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+
+(``--noconftest``: tests/conftest.py sets up JAX.)  Without a CUDA device
+the tests skip.  Tolerances, as chip_smoke.py states them: values rtol
+1e-5; gradients max |kernel - plain| <= 1e-2 * max |plain| per case.  The
+limit scales with the case because batch-all gradients shrink as 1/count;
+the plain version's own float32 rounding (it sums +-1/count per triplet,
+where the kernel counts in integers) reads up to ~1e-3 on it, and a
+backward that drops the g^T term or returns zeros reads above 0.6.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from ugaitnet_tpu_torch.ops.cuda import triplet_kernel as K
+from ugaitnet_tpu_torch.ops.triplet import batch_all_triplet_loss
+
+VAL_RTOL = 1e-5
+GRAD_REL = 1e-2
+
+# (parts, B, D, seed, ids per label); parts None = rank-2 (B, D)
+CASES = [(1, 12, 8, 0, 4), (5, 12, 16, 0, 4), (62, 8, 16, 0, 4),
+         (None, 10, 8, 1, 2), (3, 12, 8, 2, 4), (62, 120, 256, 4, 10),
+         (4, 256, 64, 6, 4), (2, 160, 32, 0, 16)]
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("parts,b,d,seed,k", CASES)
+def test_cuda_kernel_matches_plain(cuda, parts, b, d, seed, k):
+    rng = np.random.RandomState(seed)
+    shape = (b, d) if parts is None else (b, parts, d)
+    emb = torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(cuda)
+    labels = torch.from_numpy(
+        np.repeat(np.arange(b // k + 1), k)[:b].astype(np.int32)).to(cuda)
+    xp = emb.clone().requires_grad_(True)
+    want = batch_all_triplet_loss(xp, labels)
+    want.backward()
+    xk = emb.clone().requires_grad_(True)
+    got = K.batch_all_triplet_loss_cuda(xk, labels)
+    got.backward()
+    np.testing.assert_allclose(float(got.detach()), float(want.detach()),
+                               rtol=VAL_RTOL)
+    want_g = xp.grad.cpu().numpy()
+    np.testing.assert_allclose(xk.grad.cpu().numpy(), want_g, rtol=0,
+                               atol=GRAD_REL * np.abs(want_g).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("labels", [np.zeros(6), np.arange(6)])
+def test_cuda_degenerate_batches(cuda, labels):
+    emb = torch.randn(6, 2, 8, device=cuda).requires_grad_(True)
+    lab = torch.as_tensor(labels, dtype=torch.int32, device=cuda)
+    val = K.batch_all_triplet_loss_cuda(emb, lab)
+    val.backward()
+    assert float(val.detach()) == 0.0
+    assert torch.equal(emb.grad, torch.zeros_like(emb.grad))
+
+
+@pytest.mark.cuda
+def test_cuda_launch_counts_and_dtype(cuda):
+    K.reset_launch_counts()
+    emb = torch.randn(12, 3, 8, device=cuda, dtype=torch.bfloat16)
+    emb.requires_grad_(True)
+    lab = torch.as_tensor(np.repeat(np.arange(3), 4), device=cuda)
+    K.batch_all_triplet_loss_cuda(emb, lab).backward()
+    assert (K.fwd_launches, K.bwd_launches) == (1, 1)
+    assert emb.grad.dtype == torch.bfloat16

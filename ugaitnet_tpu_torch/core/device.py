@@ -1,0 +1,24 @@
+"""Device resolution for the port's entry points.
+
+Every entry point takes ``device=None``, which means the CUDA card.  There is
+no silent CPU fallback: without a card the caller must ask for the CPU
+explicitly (``device="cpu"``), as the CPU tests do.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Union
+
+import torch
+
+DeviceLike = Optional[Union[str, torch.device]]
+
+
+def resolve_device(device: DeviceLike = None) -> torch.device:
+    """``None`` -> ``cuda``; a CUDA device without a card raises."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run the "
+            "port on the CPU")
+    return dev

@@ -1,0 +1,157 @@
+"""GaitSet-style set-pooling branch with horizontal pyramid pooling.
+
+Port of ``ugaitnet_tpu/models/gaitset.py``.  The public layout is the JAX
+package's ``(B, T, H, W, C)``; inside, the frame stream runs NCHW with T
+folded into the batch ``(B*T, C, H, W)`` (the JAX package's off-TPU form),
+and the set stream runs ``(B, C, H, W)``.
+
+  frame stream (a):  per-frame 5x5 / 3x3 "SAME" convs, 2x2 max pools
+  set stream (b):    max over time ("set pooling") at three depths, with
+                     residual adds from the frame stream
+  HPP:               bins (1, 2, 4, 8, 16) over both streams, each bin a
+                     strip of the 16x16 map taken ROW-MAJOR over (H, W),
+                     reduced by mean + max; (a, b) interleaved per bin
+                     -> 2 * 31 = 62 parts
+  part projection:   (62, C3, part_dim) tensor, einsum("bpc,pcd->bpd")
+
+lrelu is ``max(x, 0.3 x)``, applied after the pools as in the JAX module
+(exact by monotonicity).  With ``dtype=torch.bfloat16`` the conv inputs and
+weights are cast to bf16 (outputs bf16) and the part projection takes bf16
+inputs with float32 accumulation and output, where the JAX module casts.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ugaitnet_tpu_torch.ops.pooling import max_pool_2x2
+
+A_CONVS = ("a_conv1", "a_conv2", "a_conv3", "a_conv4", "a_conv5", "a_conv6")
+B_CONVS = ("b_conv1", "b_conv2", "b_conv3", "b_conv4")
+
+
+def glorot_(t: torch.Tensor, fan_in: int, fan_out: int,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Glorot-uniform with explicit fans (flax's rule: fans include the
+    receptive field, and for part_proj the leading part axis)."""
+    limit = math.sqrt(6.0 / (fan_in + fan_out))
+    with torch.no_grad():
+        return t.uniform_(-limit, limit, generator=generator)
+
+
+class FrameConv(nn.Module):
+    """Bias-free "SAME" 2D conv on NCHW, weight OIHW.  The frame stream
+    calls it with T folded into the batch (the JAX ``FrameConv``'s off-TPU
+    form); the set stream calls it on (B, C, H, W) (the JAX ``nn.Conv``)."""
+
+    def __init__(self, ci: int, co: int, k: int, dtype: torch.dtype,
+                 generator: Optional[torch.Generator]):
+        super().__init__()
+        self.dtype = dtype
+        self.weight = nn.Parameter(glorot_(torch.empty((co, ci, k, k)),
+                                           k * k * ci, k * k * co, generator))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        w = self.weight
+        return F.conv2d(x.to(self.dtype), w.to(self.dtype),
+                        padding=w.shape[-1] // 2)
+
+
+def _set_max(a: torch.Tensor, batch: int) -> torch.Tensor:
+    """Set pooling: (B*T, C, H, W) -> (B, C, H, W), max over time."""
+    return torch.amax(a.reshape(batch, -1, *a.shape[1:]), dim=1)
+
+
+def _hpp(fmap: torch.Tensor, num_bin: int) -> torch.Tensor:
+    """One pyramid level: (B, C, H, W) -> (B, num_bin, C), mean + max per
+    strip.  The (H, W) grid is cut row-major into ``num_bin`` strips, as
+    the reference reshapes its (B, H, W, C) map."""
+    b, c, h, w = fmap.shape
+    strips = fmap.reshape(b, c, num_bin, (h * w) // num_bin)
+    return (strips.mean(dim=-1) + strips.amax(dim=-1)).transpose(1, 2)
+
+
+class GaitSetBranch(nn.Module):
+    """(B, T, H, W, C) -> (B, num_parts, part_dim)."""
+
+    def __init__(self, in_channels: int,
+                 channels: Tuple[int, int, int] = (32, 64, 128),
+                 hpp_bins: Sequence[int] = (1, 2, 4, 8, 16),
+                 part_dim: int = 256, leaky_alpha: float = 0.3,
+                 pad: int = 2, dtype: torch.dtype = torch.float32,
+                 moe_experts: int = 0,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if moe_experts > 0:
+            raise NotImplementedError(
+                "the MoE part projection is not ported yet (ROADMAP.md, "
+                "'Multi-device and extras')")
+        c1, c2, c3 = channels
+        self.hpp_bins = tuple(hpp_bins)
+        self.leaky_alpha = leaky_alpha
+        self.pad = pad
+        self.dtype = dtype
+        # (name, in, out, kernel) in the JAX module's creation order
+        a_specs = [(in_channels, c1, 5), (c1, c1, 3), (c1, c2, 3),
+                   (c2, c2, 3), (c2, c3, 3), (c3, c3, 3)]
+        b_specs = [(c1, c2, 3), (c2, c2, 3), (c2, c3, 3), (c3, c3, 3)]
+        for name, (ci, co, k) in zip(A_CONVS + B_CONVS, a_specs + b_specs):
+            setattr(self, name, FrameConv(ci, co, k, dtype, generator))
+        nparts = 2 * sum(self.hpp_bins)
+        self.part_proj = nn.Parameter(glorot_(
+            torch.empty((nparts, c3, part_dim)), c3 * nparts,
+            part_dim * nparts, generator))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        alpha = self.leaky_alpha
+
+        def lrelu(v):
+            return torch.maximum(v, alpha * v)
+
+        b, t, h, w, c = x.shape
+        # (B, T, H, W, C) -> (B*T, C, H, W); cast before padding, as JAX
+        x = x.permute(0, 1, 4, 2, 3).reshape(b * t, c, h, w).to(self.dtype)
+        p = self.pad
+        x = F.pad(x, (p, p, p, p))
+
+        # frame stream, stage 1
+        a = lrelu(self.a_conv1(x))
+        a = self.a_conv2(a)
+        a = lrelu(max_pool_2x2(a))                     # (B*T, c1, 32, 32)
+
+        # set stream, stage 1
+        sb = _set_max(a, b)
+        sb = lrelu(self.b_conv1(sb))
+        sb = self.b_conv2(sb)
+        sb = lrelu(max_pool_2x2(sb))                   # (B, c2, 16, 16)
+
+        # frame stream, stage 2
+        a = lrelu(self.a_conv3(a))
+        a = self.a_conv4(a)
+        a = lrelu(max_pool_2x2(a))                     # (B*T, c2, 16, 16)
+
+        sb = sb + _set_max(a, b)                       # residual add
+        sb = lrelu(self.b_conv3(sb))
+        sb = lrelu(self.b_conv4(sb))                   # (B, c3, 16, 16)
+
+        # frame stream, stage 3 + final set pool
+        a = lrelu(self.a_conv5(a))
+        a = self.a_conv6(a)
+        sa = lrelu(_set_max(a, b))                     # (B, c3, 16, 16)
+
+        sb = sb + sa
+
+        feats = []
+        for nb in self.hpp_bins:
+            feats.append(_hpp(sa, nb))
+            feats.append(_hpp(sb, nb))
+        parts = torch.cat(feats, dim=1)                # (B, 62, c3)
+
+        # bf16 in, float32 accumulation and output (preferred_element_type)
+        return torch.einsum("bpc,pcd->bpd", parts.to(self.dtype).float(),
+                            self.part_proj.to(self.dtype).float())
