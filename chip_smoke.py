@@ -10,15 +10,22 @@ channels (32, 64, 128), part_dim 256, 62 parts, sign_max merge, 74 classes):
 
   1. kernels vs plain: the CUDA batch-all triplet forward and backward
      against ``ops/triplet.py`` on the same CUDA tensors, at the flagship
-     (62, 120, 256), small and degenerate cases, B = 256 and B = 512;
-     kernel and plain times at the flagship shape, B = 256 and B = 512;
+     (62, 120, 256), small, ragged (D not a multiple of the kernels'
+     chunks, B not of 4) and degenerate cases, B = 256 and B = 512; and
+     the kernels against themselves, exactly: dist bitwise symmetric with
+     a zero diagonal, the per-part counts equal to the active triplets
+     torch counts over the kernel's own dist, and the kernel's g equal,
+     bitwise, to those integer counts times the scale; dist against the
+     plain pairwise_dist; kernel and plain times at the flagship shape,
+     B = 256 and B = 512;
   2. embed: preprocess_batch on raw int16 OF / uint8 gray at B = 128, then
      the forward, in float32 and bfloat16 (inputs perturbed every batch);
   3. train (the main path): raw B = 40 (8 ids x 5) -> preprocess with
-     expand 3 (B = 120) -> Adam steps with the batch_all kernel; launch
-     counts are set to 0 just before and read just after; one step from
-     the same state with the plain triplet must give the same losses and
-     the same gradient at the signature;
+     expand 3 (B = 120) -> Adam steps with the batch_all kernel (2 warm-up
+     steps, then the median of 5); launch counts are set to 0 just before
+     and read just after; one step from the same state with the plain
+     triplet must give the same losses and the same gradient at the
+     signature;
   4. checks: use_flag = 0 equals a noise-filled input exactly, and the card's
      forward agrees with the CPU's on a small batch (and with TF32 on, does
      not).
@@ -26,6 +33,9 @@ channels (32, 64, 128), part_dim 256, 62 parts, sign_max merge, 74 classes):
 Gradient limits scale with each case, and every run reads planted faults
 (a backward without the g^T term, with the negative role's sign flipped,
 or returning zeros) against them: a limit that passes a fault fails the run.
+
+The compiler's report (-Xptxas -v) is printed, and a kernel that spills
+registers fails the run.
 
 Prints the card (nvidia-smi name and power limit), one JSON line with every
 kernel's launches, error, times and bound, and as the last line
@@ -55,6 +65,10 @@ VAL_RTOL = 1e-5                  # loss values: float32 sums in another order
 # unless each lies above it.
 GRAD_REL = 1e-2
 STEP_RTOL = 1e-5                 # train-step losses, kernel vs plain triplet
+# kernel dist vs plain pairwise_dist (cuBLAS, TF32 off): max |kernel - plain|
+# <= DIST_REL * max |plain|; both are float32 dot products summed in other
+# orders, and the entries are O(10) on these random inputs
+DIST_REL = 1e-5
 # card vs CPU forward, float32 with TF32 off: max |card - CPU| <= CPU_REL *
 # max |CPU| per output.  cuDNN's FFT and implicit-GEMM convolutions round
 # differently from the CPU's direct sums; every run also reads the card with
@@ -63,8 +77,8 @@ CPU_REL = 3e-4
 FAULTS = ("g^T dropped", "negative sign", "zeros")
 
 SRC = "ugaitnet_tpu_torch/csrc/triplet_kernel.cu"
-FWD_KERNELS = ("dist_kernel", "fwd_kernel")
-BWD_KERNELS = ("grow_kernel", "finish_kernel")
+FWD_KERNELS = ("triplet_fwd_kernel",)
+BWD_KERNELS = ("triplet_rows_kernel", "triplet_finish_kernel")
 PALLAS = "ugaitnet_tpu/ops/pallas/triplet_kernel.py"
 
 
@@ -192,7 +206,8 @@ def main():
     from ugaitnet_tpu_torch.models.network import UGaitNet
     from ugaitnet_tpu_torch.ops.cuda import build
     from ugaitnet_tpu_torch.ops.cuda import triplet_kernel as K
-    from ugaitnet_tpu_torch.ops.triplet import batch_all_triplet_loss
+    from ugaitnet_tpu_torch.ops.triplet import (batch_all_triplet_loss,
+                                                pairwise_dist)
     from ugaitnet_tpu_torch.train.train_step import (Batch, init_state,
                                                      make_train_step)
 
@@ -211,9 +226,12 @@ def main():
     build.load("triplet_kernel")
     print(f"kernel build: {time.perf_counter() - t0:.1f} s")
     with open(f"{build.BUILD_DIR}/triplet_kernel.log") as f:
-        ptxas = [ln.strip() for ln in f if "registers" in ln or
-                 "Compiling entry" in ln]
+        ptxas = [ln.strip() for ln in f if "registers" in ln or "spill" in ln
+                 or "Compiling entry" in ln]
     print("ptxas: " + " | ".join(ptxas))
+    spills = [ln for ln in ptxas if "spill" in ln]
+    check(spills and all("0 bytes spill stores, 0 bytes spill loads" in ln
+                         for ln in spills), "a kernel spills registers")
 
     # ---- 1. kernels vs plain ---------------------------------------------
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -237,8 +255,7 @@ def main():
         CUDA-event ms, the plain version's ms and the bounds."""
         p_, b_, d_ = x.shape[1], x.shape[0], x.shape[2]
         dist, _, pcnt = K.launch_fwd(x, lab, 0.2)
-        scale = torch.where(pcnt > 0, 1.0 / (pcnt.clamp_min(1.0) * p_),
-                            torch.zeros_like(pcnt)).contiguous()
+        scale = unit_scale(pcnt)
         fwd = lambda: K.launch_fwd(x, lab, 0.2)
         bwd = lambda: K.launch_bwd(x, lab, dist, scale, 0.2)
         t = {"fwd_dev": device_ms(fwd, FWD_KERNELS),
@@ -275,21 +292,61 @@ def main():
               f"{t['bwd_bound'][0]:.4f} ms ({t['bwd_bound'][1]}) [{card}]")
         return t
 
+    def unit_scale(pcnt):
+        """The backward's per-part scale for an upstream gradient of 1."""
+        return torch.where(pcnt > 0, 1.0 / (pcnt.clamp_min(1.0) *
+                                             pcnt.shape[0]),
+                           torch.zeros_like(pcnt)).contiguous()
+
+    def exact_checks(x, lab, margin=0.2):
+        """The kernels against themselves on their own dist: symmetry and
+        diagonal, integer counts and g, bitwise; and max |dist - plain| /
+        max |plain|."""
+        dist, _, pcnt = K.launch_fwd(x, lab, margin)
+        scale = unit_scale(pcnt)
+        _, g = K.launch_bwd(x, lab, dist, scale, margin)
+        check(torch.equal(dist, dist.transpose(1, 2)),
+              "dist is not bitwise symmetric")
+        check(bool((torch.diagonal(dist, dim1=1, dim2=2) == 0).all()),
+              "dist has a nonzero diagonal")
+        same = lab[:, None] == lab[None, :]
+        valid = same[:, :, None] & ~same[:, None, :]
+        counts, g_want = [], []
+        for d in dist:                       # act[a, j, k], one part at a time
+            act = ((margin + d[:, :, None] - d[:, None, :]) > 0) & valid
+            counts.append(act.sum())
+            g_want.append(act.sum(2) - act.sum(1))   # as positive - as negative
+        counts = torch.stack(counts)
+        g_want = torch.stack(g_want).to(torch.float32) * scale[:, None, None]
+        check(torch.equal(pcnt.to(torch.int64), counts),
+              f"active counts {pcnt.tolist()} vs {counts.tolist()}")
+        check(torch.equal(g, g_want), "g differs from counts x scale")
+        e = x[None] if x.ndim == 2 else x.transpose(0, 1)
+        plain = pairwise_dist(e)
+        return rel_err(dist, plain)
+
     pk = lambda n: np.repeat(np.arange(n[0]), n[1])          # P x K labels
     cases = [("flagship", 62, 120, 256, pk((12, 10))),
              ("small", 1, 12, 8, pk((3, 4))),
              ("rank2", None, 10, 8, pk((5, 2))),
+             ("ragged", 3, 50, 40, np.arange(50) % 7),
+             ("odd", 2, 37, 10, np.arange(37) % 5),
              ("B256", 16, 256, 256, np.arange(256) % 10),
              ("B512", 4, 512, 256, np.arange(512) % 10)]
     results, times = {}, {}
+    dist_err = {}
     for name, parts, b, d, labels in cases:
         x, lab, vp, vk, gk, gp = case(parts, b, d, labels)
         rel = abs(vk - vp) / abs(vp)
         gerr = rel_err(gk, gp)
+        dist_err[name] = exact_checks(x, lab)
         print(f"kernel vs plain {name} {tuple(x.shape)}: value {vk:.7f} vs "
               f"{vp:.7f} (rel {rel:.2e}, tol {VAL_RTOL}); grad max abs err "
               f"{float((gk - gp).abs().max()):.2e}, max |grad| "
-              f"{float(gp.abs().max()):.2e}")
+              f"{float(gp.abs().max()):.2e}; dist symmetric, zero diagonal, "
+              f"counts and g exact; dist vs plain {dist_err[name]:.2e} "
+              f"(limit {DIST_REL})")
+        check(dist_err[name] <= DIST_REL, f"{name}: dist vs plain")
         results[name] = (vp, rel, gerr, fault_readings(x, lab, gp))
         if name == "flagship":
             fwd_err = abs(vk - vp)
@@ -372,7 +429,7 @@ def main():
     step = make_train_step(mcfg, tcfg)
     raw = raw_batch(40, 8, seed=2)
     mask_gen = torch.Generator().manual_seed(0)
-    nsteps = 4
+    warmup, nsteps = 2, 7
     step_ms, losses = [], []
 
     def capture(net, store):
@@ -411,11 +468,12 @@ def main():
         check(all(np.isfinite(v) for v in m.values()), f"train metrics {m}")
     check(launches == {"triplet_fwd": nsteps, "triplet_bwd": nsteps},
           f"kernel launches {launches} over {nsteps} steps")
-    train_ms = float(np.median(step_ms[1:]))
+    train_ms = float(np.median(step_ms[warmup:]))
     print(f"train: {nsteps} steps B=120, losses "
           f"{[round(m['loss'], 6) for m in losses]}, launches {launches}, "
-          f"step {train_ms:.2f} ms (median of steps 2-{nsteps}; first "
-          f"{step_ms[0]:.1f} ms), peak {peak_gb:.1f} GB [{card}]")
+          f"step {train_ms:.2f} ms (median of steps {warmup + 1}-{nsteps}; "
+          f"warm-up {[round(t, 1) for t in step_ms[:warmup]]} ms), peak "
+          f"{peak_gb:.1f} GB [{card}]")
 
     plain_model = UGaitNet(mcfg, seed=0)
     plain_model.load_state_dict(before[0])
@@ -467,16 +525,16 @@ def main():
     bf_state = init_state(UGaitNet(bf_cfg, seed=0), tcfg)
     bf_step = make_train_step(bf_cfg, tcfg)
     bf_ms = []
-    for i in range(4):
+    for i in range(nsteps):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         _, m = bf_step(bf_state, batch)
         torch.cuda.synchronize()
         bf_ms.append((time.perf_counter() - t0) * 1e3)
         check(np.isfinite(float(m["loss"])), "bf16 train loss")
-    bf_train_ms = float(np.median(bf_ms[1:]))
-    print(f"train bfloat16: step {bf_train_ms:.2f} ms (median of steps 2-4,"
-          f" same batch, preprocess excluded) [{card}]")
+    bf_train_ms = float(np.median(bf_ms[warmup:]))
+    print(f"train bfloat16: step {bf_train_ms:.2f} ms (median of steps "
+          f"{warmup + 1}-{nsteps}, same batch, preprocess excluded) [{card}]")
     del bf_state
 
     # ---- 4. checks on the full-width forward --------------------------------
@@ -538,6 +596,7 @@ def main():
                       "train_wall_ms": wall / 2e3,
                       "train_peak_gb": peak_gb,
                       "triplet_times": times,
+                      "dist_rel_err": dist_err,
                       "grad_rel_err": {k: {"kernel": v[2], **v[3]}
                                        for k, v in results.items()},
                       "signature_grad_rel_err": {"kernel": sig_err,

@@ -10,6 +10,11 @@ limit scales with the case because batch-all gradients shrink as 1/count;
 the plain version's own float32 rounding (it sums +-1/count per triplet,
 where the kernel counts in integers) reads up to ~1e-3 on it, and a
 backward that drops the g^T term or returns zeros reads above 0.6.
+
+The kernels are also held to themselves, exactly: dist is bitwise
+symmetric with a zero diagonal, the per-part counts equal the active
+triplets that torch counts over the kernel's own dist, and the backward's
+g equals those integer counts times the scale, bitwise.
 """
 
 import numpy as np
@@ -17,15 +22,19 @@ import pytest
 import torch
 
 from ugaitnet_tpu_torch.ops.cuda import triplet_kernel as K
-from ugaitnet_tpu_torch.ops.triplet import batch_all_triplet_loss
+from ugaitnet_tpu_torch.ops.triplet import (batch_all_triplet_loss,
+                                            pairwise_dist)
 
 VAL_RTOL = 1e-5
 GRAD_REL = 1e-2
 
 # (parts, B, D, seed, ids per label); parts None = rank-2 (B, D)
+# D = 8 and 40 are not multiples of the kernels' 32-wide D-chunk (nor of
+# the finish kernel's 128 columns); D = 10 and B = 37 take the 4-byte copies
 CASES = [(1, 12, 8, 0, 4), (5, 12, 16, 0, 4), (62, 8, 16, 0, 4),
          (None, 10, 8, 1, 2), (3, 12, 8, 2, 4), (62, 120, 256, 4, 10),
-         (4, 256, 64, 6, 4), (2, 160, 32, 0, 16)]
+         (4, 256, 64, 6, 4), (2, 160, 32, 0, 16), (3, 50, 40, 7, 5),
+         (2, 37, 10, 3, 4)]
 
 
 @pytest.fixture
@@ -35,14 +44,19 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("parts,b,d,seed,k", CASES)
-def test_cuda_kernel_matches_plain(cuda, parts, b, d, seed, k):
+def _case(cuda, parts, b, d, seed, k):
     rng = np.random.RandomState(seed)
     shape = (b, d) if parts is None else (b, parts, d)
     emb = torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(cuda)
     labels = torch.from_numpy(
         np.repeat(np.arange(b // k + 1), k)[:b].astype(np.int32)).to(cuda)
+    return emb, labels
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("parts,b,d,seed,k", CASES)
+def test_cuda_kernel_matches_plain(cuda, parts, b, d, seed, k):
+    emb, labels = _case(cuda, parts, b, d, seed, k)
     xp = emb.clone().requires_grad_(True)
     want = batch_all_triplet_loss(xp, labels)
     want.backward()
@@ -76,3 +90,34 @@ def test_cuda_launch_counts_and_dtype(cuda):
     K.batch_all_triplet_loss_cuda(emb, lab).backward()
     assert (K.fwd_launches, K.bwd_launches) == (1, 1)
     assert emb.grad.dtype == torch.bfloat16
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("parts,b,d,seed,k", CASES)
+def test_cuda_dist_symmetric_zero_diagonal(cuda, parts, b, d, seed, k):
+    emb, labels = _case(cuda, parts, b, d, seed, k)
+    dist, _, _ = K.launch_fwd(emb, labels, 0.2)
+    assert torch.equal(dist, dist.transpose(1, 2))
+    assert torch.equal(torch.diagonal(dist, dim1=1, dim2=2),
+                       torch.zeros(dist.shape[:2], device=cuda))
+    x = emb[None] if emb.ndim == 2 else emb.transpose(0, 1)
+    want = pairwise_dist(x)
+    assert float((dist - want).abs().max()) <= 1e-5 * float(want.max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("parts,b,d,seed,k", CASES)
+def test_cuda_counts_and_g_exact(cuda, parts, b, d, seed, k):
+    """Counts and g against torch over the kernel's own dist, exactly."""
+    margin = 0.2
+    emb, labels = _case(cuda, parts, b, d, seed, k)
+    dist, _, count = K.launch_fwd(emb, labels, margin)
+    scale = torch.where(count > 0, 1.0 / (count.clamp_min(1.0) * len(count)),
+                        torch.zeros_like(count))
+    _, g = K.launch_bwd(emb, labels, dist, scale, margin)
+    same = labels[:, None] == labels[None, :]
+    act = ((margin + dist[:, :, :, None] - dist[:, :, None, :]) > 0) \
+        & same[:, :, None] & ~same[:, None, :]            # act[p, a, j, k]
+    assert torch.equal(count.to(torch.int64), act.sum((1, 2, 3)))
+    want_g = (act.sum(3) - act.sum(2)).to(torch.float32) * scale[:, None, None]
+    assert torch.equal(g, want_g)

@@ -9,6 +9,10 @@ plain version on the card in tests/test_torch_cuda.py and chip_smoke.py.
 Tolerances: values rtol 1e-5 (float32 sums of up to ~1e4 hinge terms in
 another order); gradients rtol 2e-4 / atol 2e-5, as the JAX package's own
 Pallas-vs-XLA test states them.
+
+The CUDA kernels' launch plan (tiles, grids, shared memory) is pure Python
+and is checked here; the distance diagonal's divergence from the reference
+is shown here too.
 """
 
 import jax
@@ -63,6 +67,80 @@ def test_pairwise_dist_matches():
     # residue (|x|^2 ~ 8 here: sqrt(8 * 2^-23 * few) < 5e-3) in either one
     assert np.abs(np.diagonal(got, axis1=1, axis2=2)).max() < 5e-3
     assert np.abs(np.diagonal(want, axis1=1, axis2=2)).max() < 5e-3
+
+
+@pytest.mark.parametrize("parts,b,d", [(62, 120, 256), (62, 12, 16)])
+def test_distance_diagonal_divergence(parts, b, d):
+    """No unmasked port can reproduce the reference's distance diagonal.
+
+    On batch-axis-normalized inputs (as ``l2_mode="reference"`` gives), the
+    JAX formula leaves d2[i, i] = 2|xi|^2 - 2 xi.xi as a float32 rounding
+    residue that depends on the BLAS's summation order: the same formula in
+    torch leaves another one.  The port's diagonal is the exact value 0,
+    the same on every backend; its off-diagonal stays within the tolerance
+    of test_pairwise_dist_matches.  (ROADMAP.md section 3, "Not faults".)
+    """
+    rng = np.random.RandomState(0)
+    emb = rng.randn(b, parts, d).astype(np.float32)
+    emb /= np.sqrt(np.maximum(np.sum(emb * emb, axis=0, keepdims=True),
+                              1e-12))
+    x = np.ascontiguousarray(np.transpose(emb, (1, 0, 2)))
+    ref_d2 = np.asarray(j_pairwise(jnp.asarray(x), squared=True))
+    xt = torch.from_numpy(x)
+    sq = torch.sum(xt * xt, dim=-1)
+    torch_d2 = torch.clamp_min(
+        sq[..., :, None] + sq[..., None, :] - 2.0 * xt @ xt.transpose(-1, -2),
+        0.0).numpy()
+    ref_diag = np.diagonal(ref_d2, axis1=1, axis2=2)
+    torch_diag = np.diagonal(torch_d2, axis1=1, axis2=2)
+    assert np.count_nonzero(ref_diag) > 0 and np.count_nonzero(torch_diag) > 0
+    assert not np.array_equal(ref_diag, torch_diag), (
+        np.count_nonzero(ref_diag), np.count_nonzero(torch_diag))
+
+    got = pairwise_dist(xt).numpy()
+    want = np.asarray(j_pairwise(jnp.asarray(x)))
+    assert np.array_equal(np.diagonal(got, axis1=1, axis2=2),
+                          np.zeros((parts, b), np.float32))
+    off = ~np.eye(b, dtype=bool)
+    np.testing.assert_allclose(got[:, off], want[:, off], rtol=1e-5,
+                               atol=1e-6)
+
+
+@pytest.mark.parametrize("parts,b,d", [
+    (1, 12, 8), (62, 8, 16), (62, 120, 256), (16, 256, 256), (4, 512, 256),
+    (2, 160, 32), (1, 4096, 256)])
+def test_launch_plan(parts, b, d):
+    """The CUDA kernels' launch geometry, checked where there is no card."""
+    pl = K.plan(parts, b, d)
+
+    def covers_once(tile, grid, n):
+        hits = np.zeros(n, np.int64)
+        for t in range(grid):
+            assert t * tile < n, "a CTA with no rows"
+            hits[t * tile:(t + 1) * tile] += 1
+        return (hits == 1).all()
+
+    assert covers_once(pl.fwd_ta, pl.fwd_grid_x, b)       # anchors
+    assert covers_once(pl.rows_ta, pl.rows_grid_x, b)     # g rows
+    assert covers_once(pl.fin_ti, pl.fin_grid_x, b)       # dx rows
+    assert covers_once(K.COLS, pl.fin_grid_y, d)          # dx columns
+    assert pl.fwd_ta in (8, 16, 32) and pl.fin_ti in (8, 16, 32)
+    assert pl.rows_ta in (1, 2, 4, 8, 16)
+    for smem in (pl.fwd_smem, pl.rows_smem, pl.fin_smem):
+        assert 0 < smem <= K.MAX_SMEM == 232_448
+    assert pl.fwd_smem == K.fwd_smem_bytes(pl.fwd_ta, b)
+    assert pl.rows_smem == K.rows_smem_bytes(pl.rows_ta, b)
+    assert pl.fin_smem == K.finish_smem_bytes(pl.fin_ti, b)
+    # one (sum, count) slot per forward CTA, which launch_fwd sums over dim 1
+    dist, sums, counts = K.fwd_outputs(pl, parts, b, "meta")
+    assert dist.shape == (parts, b, b)
+    assert sums.shape == counts.shape == (parts, pl.fwd_grid_x)
+    assert sums.sum(1).shape == (parts,)
+
+
+def test_launch_plan_refuses_what_does_not_fit():
+    with pytest.raises(ValueError, match="too large"):
+        K.plan(1, 8192, 256)
 
 
 # (parts, B, D) of tests/test_pallas_triplet.py; None = rank-2 (B, D)

@@ -3,7 +3,8 @@
 Replaces the Pallas TPU kernels of ``ugaitnet_tpu/ops/pallas/triplet_kernel.py``
 (``_fwd_kernel`` / ``_bwd_kernel`` and their gridded variants for B > 128).
 The kernels are in ``csrc/triplet_kernel.cu``, whose header note gives the
-design and what bounds it on the card.  One path serves every batch size.
+design and what bounds it on the card.  One path serves every batch size;
+``plan`` chooses the launch geometry (tiles, grids, shared memory) for it.
 
 ``batch_all_triplet_loss_cuda`` runs the kernels for a CUDA tensor and the
 plain version (``ops/triplet.py``) for a CPU tensor; it has no other
@@ -14,6 +15,8 @@ this process (``reset_launch_counts`` sets them to 0).
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 
 import torch
 
@@ -23,6 +26,92 @@ fwd_launches = 0
 bwd_launches = 0
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+
+# Mirrors of the constants of csrc/triplet_kernel.cu (every kernel runs 256
+# threads).
+D_CHUNK = 32            # triplet_fwd_kernel: D-chunk of a stage (kKC)
+_ROW_STRIDE = D_CHUNK + 4   # triplet_fwd_kernel: shared row stride in floats (kKS)
+GRAM_COLS = 128         # triplet_fwd_kernel: Gram columns per pass (kCB)
+J_CHUNK = 32            # triplet_finish_kernel: x rows per stage (kJC)
+COLS = 128              # triplet_finish_kernel: columns per CTA (kDC)
+MAX_SMEM = 232_448      # dynamic shared memory a CTA may ask for on an H100
+SMS = 132               # streaming multiprocessors of an H100 SXM
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """Launch geometry of the three kernels for one (P, B, D).
+
+    triplet_fwd_kernel: one CTA per (part, tile of ``fwd_ta`` anchors), grid
+    (``fwd_grid_x``, P), writing one (sum, count) partial per CTA.
+    triplet_rows_kernel: one CTA per (part, tile of ``rows_ta`` anchors).
+    triplet_finish_kernel: one CTA per (part, ``fin_ti`` rows, ``COLS`` columns),
+    grid (``fin_grid_x``, ``fin_grid_y``, P).  The ``*_smem`` fields are the
+    dynamic shared-memory bytes of each launch."""
+    fwd_ta: int
+    fwd_grid_x: int
+    fwd_smem: int
+    rows_ta: int
+    rows_grid_x: int
+    rows_smem: int
+    fin_ti: int
+    fin_grid_x: int
+    fin_grid_y: int
+    fin_smem: int
+
+
+def fwd_smem_bytes(ta: int, b: int) -> int:
+    """Stages [2][(ta + GRAM_COLS) rows], d rows [ta][B], norms [B], labels
+    [B], warp partials [2][8]."""
+    return 4 * (2 * (ta + GRAM_COLS) * _ROW_STRIDE + ta * b + 2 * b + 16)
+
+
+def rows_smem_bytes(ta: int, b: int) -> int:
+    """d rows [ta][B], labels [B], counts [ta][B]."""
+    return 4 * (2 * ta * b + b)
+
+
+def finish_smem_bytes(ti: int, b: int) -> int:
+    """x stages [2][J_CHUNK][COLS], W rows [ti][B | 1]."""
+    return 4 * (2 * J_CHUNK * COLS + ti * (b | 1))
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _pick(tiles, smem, ctas):
+    """The largest tile that fits in shared memory and still gives every SM
+    a CTA; else the smallest that fits (the most CTAs); None if none fits."""
+    fits = [t for t in tiles if smem(t) <= MAX_SMEM]
+    return next((t for t in fits if ctas(t) >= SMS), fits[-1] if fits else None)
+
+
+@functools.lru_cache(maxsize=64)
+def plan(p: int, b: int, d: int) -> Plan:
+    """Tile sizes, grids and shared memory for (P, B, D); the tiles shrink as
+    B grows so that every CTA asks for at most MAX_SMEM bytes."""
+    if min(p, b, d) < 1:
+        raise ValueError(f"empty triplet problem (P, B, D) = {(p, b, d)}")
+    ta = _pick((32, 16, 8), lambda t: fwd_smem_bytes(t, b),
+               lambda t: _cdiv(b, t) * p)
+    # triplet_rows_kernel runs one warp per anchor: tiles under 8 idle warps, so
+    # they are taken only where shared memory forces them
+    ra = (_pick((16, 8), lambda t: rows_smem_bytes(t, b),
+                lambda t: _cdiv(b, t) * p)
+          or next((t for t in (4, 2, 1) if rows_smem_bytes(t, b) <= MAX_SMEM),
+                  None))
+    ti = _pick((32, 16, 8), lambda t: finish_smem_bytes(t, b),
+               lambda t: _cdiv(b, t) * _cdiv(d, COLS) * p)
+    if ta is None or ra is None or ti is None:
+        raise ValueError(f"batch {b} is too large for the triplet kernels' "
+                         f"shared memory ({MAX_SMEM} bytes a CTA)")
+    return Plan(fwd_ta=ta, fwd_grid_x=_cdiv(b, ta),
+                fwd_smem=fwd_smem_bytes(ta, b),
+                rows_ta=ra, rows_grid_x=_cdiv(b, ra),
+                rows_smem=rows_smem_bytes(ra, b),
+                fin_ti=ti, fin_grid_x=_cdiv(b, ti), fin_grid_y=_cdiv(d, COLS),
+                fin_smem=finish_smem_bytes(ti, b))
 
 
 def reset_launch_counts() -> None:
@@ -36,10 +125,10 @@ def _lib() -> ctypes.CDLL:
     lib = load("triplet_kernel")
     if not getattr(lib, "_typed", False):
         lib.triplet_fwd.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _LL, _LL,
-                                    _F, _P]
+                                    _F, _I, _I, _I, _P]
         lib.triplet_fwd.restype = _I
         lib.triplet_bwd.argtypes = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _LL,
-                                    _LL, _F, _P]
+                                    _LL, _F, _I, _I, _I, _I, _I, _I, _I, _P]
         lib.triplet_bwd.restype = _I
         lib._typed = True
     return lib
@@ -77,18 +166,26 @@ def _validate(x: torch.Tensor, labels: torch.Tensor) -> None:
                          "the embeddings' device")
 
 
+def fwd_outputs(pl: Plan, p: int, b: int, device):
+    """The forward's outputs: dist (P, B, B) and one (sum, count) slot per
+    CTA, (P, fwd_grid_x) each, which launch_fwd adds up over dim 1."""
+    return (torch.empty((p, b, b), dtype=torch.float32, device=device),
+            torch.empty((p, pl.fwd_grid_x), dtype=torch.float32, device=device),
+            torch.empty((p, pl.fwd_grid_x), dtype=torch.int32, device=device))
+
+
 def launch_fwd(x: torch.Tensor, labels: torch.Tensor, margin: float):
     """One forward launch: returns (dist (P, B, B), per-part sum (P,),
     per-part count (P,) float32)."""
     global fwd_launches
     _validate(x, labels)
     p, b, d, ps, rs = _geometry(x)
-    dist = torch.empty((p, b, b), dtype=torch.float32, device=x.device)
-    sums = torch.empty((p, b), dtype=torch.float32, device=x.device)
-    counts = torch.empty((p, b), dtype=torch.int32, device=x.device)
+    pl = plan(p, b, d)
+    dist, sums, counts = fwd_outputs(pl, p, b, x.device)
     rc = _lib().triplet_fwd(
         x.data_ptr(), labels.data_ptr(), dist.data_ptr(), sums.data_ptr(),
-        counts.data_ptr(), p, b, d, ps, rs, float(margin),
+        counts.data_ptr(), p, b, d, ps, rs, float(margin), pl.fwd_ta,
+        pl.fwd_grid_x, pl.fwd_smem,
         torch.cuda.current_stream(x.device).cuda_stream)
     _check(rc, "triplet_fwd")
     fwd_launches += 1
@@ -96,8 +193,9 @@ def launch_fwd(x: torch.Tensor, labels: torch.Tensor, margin: float):
 
 
 def launch_bwd(x: torch.Tensor, labels: torch.Tensor, dist: torch.Tensor,
-               scale: torch.Tensor, margin: float) -> torch.Tensor:
-    """One backward launch: dL/dx in x's layout from the per-part scale
+               scale: torch.Tensor, margin: float):
+    """One backward launch: returns (dL/dx in x's layout, the scaled
+    distance gradient g (P, B, B)) from the per-part scale
     upstream / (count_p * P) (0 where count_p is 0)."""
     global bwd_launches
     _validate(x, labels)
@@ -106,15 +204,18 @@ def launch_bwd(x: torch.Tensor, labels: torch.Tensor, dist: torch.Tensor,
             or scale.dtype != torch.float32 or not scale.is_contiguous() \
             or not dist.is_contiguous():
         raise ValueError("dist must be (P, B, B) and scale (P,) float32")
+    pl = plan(p, b, d)
     g = torch.empty((p, b, b), dtype=torch.float32, device=x.device)
     dx = torch.empty_like(x)
     rc = _lib().triplet_bwd(
         x.data_ptr(), labels.data_ptr(), dist.data_ptr(), scale.data_ptr(),
         g.data_ptr(), dx.data_ptr(), p, b, d, ps, rs, float(margin),
+        pl.rows_ta, pl.rows_grid_x, pl.rows_smem, pl.fin_ti, pl.fin_grid_x,
+        pl.fin_grid_y, pl.fin_smem,
         torch.cuda.current_stream(x.device).cuda_stream)
     _check(rc, "triplet_bwd")
     bwd_launches += 1
-    return dx
+    return dx, g
 
 
 def combine(per_sum: torch.Tensor, per_cnt: torch.Tensor) -> torch.Tensor:
@@ -145,7 +246,7 @@ class TripletLoss(torch.autograd.Function):
         p = per_cnt.shape[0]
         scale = torch.where(per_cnt > 0, grad / (per_cnt.clamp_min(1.0) * p),
                             torch.zeros_like(per_cnt)).contiguous()
-        dx = launch_bwd(x, lab, dist, scale, ctx.margin)
+        dx, _ = launch_bwd(x, lab, dist, scale, ctx.margin)
         return dx.to(ctx.in_dtype), None, None
 
 
