@@ -20,15 +20,32 @@ channels (32, 64, 128), part_dim 256, 62 parts, sign_max merge, 74 classes):
      B = 256 and B = 512;
   2. embed: preprocess_batch on raw int16 OF / uint8 gray at B = 128, then
      the forward, in float32 and bfloat16 (inputs perturbed every batch);
-  3. train (the main path): raw B = 40 (8 ids x 5) -> preprocess with
-     expand 3 (B = 120) -> Adam steps with the batch_all kernel (2 warm-up
-     steps, then the median of 5); launch counts are set to 0 just before
-     and read just after; one step from the same state with the plain
-     triplet must give the same losses and the same gradient at the
-     signature;
+  3. train (the main path): raw B = 40 (8 ids x 5) -> preprocess with the
+     flagship's augmentation (shift/zoom/flip, brightness and channel
+     shift, the OF clip coin) and expand 3 (B = 120) -> Adam steps with
+     the batch_all kernel (2 warm-up steps, then the median of 5); launch
+     counts are set to 0 just before and read just after; one step from
+     the same state and the same augmented batch with the plain triplet
+     must give the same losses and the same gradient at the signature;
   4. checks: use_flag = 0 equals a noise-filled input exactly, and the card's
      forward agrees with the CPU's on a small batch (and with TF32 on, does
-     not).
+     not);
+  5. eval: a CASIA-B-shaped synthetic gallery and probe set (50 subjects x
+     11 cameras x 2 videos, 1,100 clips each) encoded at B = 128 by the
+     flagship with weights from seed 0 (gallery mirrored), the camera-pair
+     protocol for every probe camera and the open-set protocol.  Checks:
+     the kNN labels equal a float64 numpy brute force on the same codes
+     (probes whose k-th and (k+1)-th distances lie within 1e-4 relative are
+     counted, and must stay under 1 %); the first 128 gallery codes match
+     the port on the CPU (max |d| <= 3e-4 max |CPU|); the padded tail batch
+     gives the codes of an unpadded forward, and duplicate-row padding
+     would not;
+  6. serve: SignatureService with buckets (1, 8, 32, 128) over the
+     synthetic gallery, identify_raw timed per bucket in float32 and
+     bfloat16; 128 rows enrolled in place, one label removed, self-queries
+     answered with their own labels; then a 65,536 x 15,872 random
+     unit-norm gallery (4.2 GB) and identify_codes at bucket 128 against
+     its bound.
 
 Gradient limits scale with each case, and every run reads planted faults
 (a backward without the g^T term, with the negative role's sign flipped,
@@ -75,6 +92,15 @@ DIST_REL = 1e-5
 # TF32 on and fails unless that lies above the limit.
 CPU_REL = 3e-4
 FAULTS = ("g^T dropped", "negative sign", "zeros")
+# eval: a probe whose k-th and (k+1)-th float64 neighbor distances lie within
+# KNN_TIE_REL of each other may rank them either way in float32.  Every
+# other probe's label must equal the float64 brute force's.  Near ties are
+# counted, and those whose vote changes when the two swap (the only ones
+# whose label float32 rounding can move) must stay under KNN_TIE_SHARE.
+KNN_TIE_REL = 1e-4
+KNN_TIE_SHARE = 0.01
+MODS = ("of", "gray")
+BUCKETS = (1, 8, 32, 128)
 
 SRC = "ugaitnet_tpu_torch/csrc/triplet_kernel.cu"
 FWD_KERNELS = ("triplet_fwd_kernel",)
@@ -197,9 +223,273 @@ def check_faults(name, kernel_err, faults):
           f"{name}: a planted fault reads under the limit")
 
 
+def median_ms(fn, n=5):
+    """Median host-clock ms of n calls of fn() after one warm-up call; fn
+    returns host data, so each call ends synchronized."""
+    fn()
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def knn_float64(probes, gallery, labels, k):
+    """Brute-force kNN in float64 numpy: stable sort, sklearn's vote
+    (lowest label on ties).  Returns the labels, whether each probe's k-th
+    and (k+1)-th distances lie within KNN_TIE_REL of each other, and whether
+    swapping those two changes its vote."""
+    p = probes.astype(np.float64)
+    g = gallery.astype(np.float64)
+    d = np.sqrt(np.maximum((p * p).sum(1)[:, None] + (g * g).sum(1)[None, :]
+                           - 2.0 * p @ g.T, 0.0))
+    order = np.argsort(d, axis=1, kind="stable")
+
+    def vote(rows):
+        labs, counts = np.unique(labels[rows], return_counts=True)
+        return labs[np.argmax(counts)]
+
+    pred = np.asarray([vote(r[:k]) for r in order])
+    swapped = np.asarray([vote(np.r_[r[:k - 1], r[k]]) for r in order])
+    kth = np.take_along_axis(d, order[:, k - 1:k + 1], 1)
+    near_tie = kth[:, 1] - kth[:, 0] <= KNN_TIE_REL * kth[:, 0]
+    return pred, near_tie, swapped != pred
+
+
+def casia_sets():
+    """CASIA-B-shaped synthetic gallery and probe set: the test split's 50
+    subjects, 11 cameras, 22 videos each (every camera twice), one clip per
+    video; shared identities, different draws."""
+    from ugaitnet_tpu_torch.data.synthetic import make_synthetic_dataset
+    kw = dict(num_subjects=50, num_cams=11, videos_per_subject=22,
+              subseqs_per_video=1, modalities=MODS, template_seed=0)
+    return (make_synthetic_dataset(seed=1, name="casia_gallery", **kw),
+            make_synthetic_dataset(seed=2, name="casia_probe", **kw))
+
+
+def eval_phase(model, gallery_ds, probe_ds, card):
+    """Encode, kNN and both open-world protocols at the flagship's width."""
+    from ugaitnet_tpu_torch.core.config import EvalConfig
+    from ugaitnet_tpu_torch.eval.encode import encode_dataset
+    from ugaitnet_tpu_torch.eval.protocol import (EncodedSet, encode_set,
+                                                  eval_camera_pairs,
+                                                  eval_openset)
+    from ugaitnet_tpu_torch.ops.knn import _knn_device, knn_predict
+    cfg = EvalConfig(batch_size=128)
+    dev = model.device
+    b0 = model.config.branches[0]
+    n = len(gallery_ds)
+    nbatch = -(-n // cfg.batch_size)
+    out = {"clips": n}
+    t0 = time.perf_counter()
+    gallery = encode_set(model, gallery_ds, MODS, cfg, mirror=True)
+    t_gal = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    probe = encode_set(model, probe_ds, MODS, cfg)
+    t_probe = time.perf_counter() - t0
+    code_dim = b0.num_parts * b0.part_dim
+    check(gallery.codes.shape == (2 * n, code_dim)
+          and probe.codes.shape == (n, code_dim), "encoded shapes")
+    check(bool(np.isfinite(gallery.codes).all()
+               and np.isfinite(probe.codes).all()), "codes not finite")
+    out["encode_probe_ms_per_batch"] = t_probe * 1e3 / nbatch
+    out["encode_probe_clips_per_s"] = n / t_probe
+    out["encode_gallery_mirrored_ms_per_batch"] = t_gal * 1e3 / (2 * nbatch)
+    out["encode_gallery_mirrored_clips_per_s"] = 2 * n / t_gal
+    print(f"eval encode B=128 fp32 (host gather + preprocess + forward): "
+          f"probe {out['encode_probe_ms_per_batch']:.2f} ms/batch, "
+          f"{out['encode_probe_clips_per_s']:.1f} clips/s; mirrored gallery "
+          f"{out['encode_gallery_mirrored_ms_per_batch']:.2f} ms/forward, "
+          f"{out['encode_gallery_mirrored_clips_per_s']:.1f} codes/s [{card}]")
+
+    # kNN over the mirrored gallery (G = 2,200), against float64 numpy
+    pred = knn_predict(probe.codes, gallery.codes, gallery.labels, k=3,
+                       device=dev)
+    want, near_tie, fragile = knn_float64(probe.codes, gallery.codes,
+                                          gallery.labels, 3)
+    fragile &= near_tie
+    bad = (pred != want) & ~near_tie
+    out["knn_near_ties"] = int(near_tie.sum())
+    out["knn_near_ties_vote_changing"] = int(fragile.sum())
+    print(f"kNN labels vs float64 numpy brute force: {int(bad.sum())} of "
+          f"{n - int(near_tie.sum())} differ outside near ties; near ties "
+          f"(k-th and (k+1)-th distances within {KNN_TIE_REL} relative): "
+          f"{int(near_tie.sum())} of {n}, of which {int(fragile.sum())} "
+          f"change the vote when swapped (limit {KNN_TIE_SHARE:.0%} of the "
+          f"probes) and {int((pred != want)[near_tie].sum())} differ")
+    check(not bad.any(), "kNN labels differ from the float64 brute force")
+    check(fragile.sum() < KNN_TIE_SHARE * n,
+          "too many probes whose vote hangs on a near tie")
+    out["knn_call_ms"] = median_ms(lambda: knn_predict(
+        probe.codes, gallery.codes, gallery.labels, k=3, device=dev), 3)
+    ulabs, dense = np.unique(gallery.labels, return_inverse=True)
+    pd = torch.from_numpy(probe.codes).to(dev)
+    gd = torch.from_numpy(gallery.codes).to(dev)
+    ld = torch.from_numpy(dense.astype(np.int64)).to(dev)
+    out["knn_device_ms"] = cuda_ms(lambda: _knn_device(pd, gd, ld, 3,
+                                                        len(ulabs)), 10)
+    p_, g_, d_ = pd.shape[0], gd.shape[0], gd.shape[1]
+    out["knn_bound"] = bound(4 * (p_ + g_) * d_ + 8 * g_ + 8 * p_,
+                             2 * p_ * g_ * d_)
+    print(f"kNN P={p_} G={g_} D={d_}: knn_predict call {out['knn_call_ms']:.2f}"
+          f" ms (median of 3, host copies included); device (distance "
+          f"matmul + top-k + vote, CUDA events) {out['knn_device_ms']:.3f} "
+          f"ms, bound {out['knn_bound'][0]:.3f} ms ({out['knn_bound'][1]}) "
+          f"[{card}]")
+    del pd, gd, ld
+
+    cams = np.unique(gallery.cams).tolist()
+    per_cam = {}
+    for cam in np.unique(probe.cams):
+        sel = probe.cams == cam
+        sub = EncodedSet(probe.codes[sel], probe.labels[sel],
+                         probe.video_ids[sel], probe.cams[sel])
+        per_cam[int(cam)] = eval_camera_pairs(gallery, sub, int(cam), knn=3,
+                                              cameras=cams, device=dev)
+    out["camera_pairs"] = per_cam
+    out["openset"] = eval_openset(gallery, probe, knn=3, device=dev)
+    for r in list(per_cam.values()) + [out["openset"]]:
+        check(all(0.0 <= v <= 1.0 for v in r.values()), f"Rank-1 {r}")
+    mean_sub = np.mean([r["rank1_subseq"] for r in per_cam.values()])
+    mean_vid = np.mean([r["rank1_video"] for r in per_cam.values()])
+    print(f"camera-pair Rank-1 over {len(per_cam)} probe cameras (random "
+          f"weights): subseq {mean_sub:.4f}, video vote {mean_vid:.4f}; "
+          f"open set {out['openset']}")
+
+    # the first batch on the CPU: the same 128 rows, the same weights
+    first = min(cfg.batch_size, n)
+    with torch.inference_mode():
+        cpu_codes, _, _, _ = encode_dataset(
+            copy.deepcopy(model).to("cpu"), gallery_ds, MODS,
+            batch_size=first, indices=np.arange(first))
+    cpu_err = rel_err(torch.from_numpy(gallery.codes[:first]),
+                      torch.from_numpy(cpu_codes))
+    out["card_vs_cpu_rel_err"] = cpu_err
+    print(f"gallery codes 0-{first - 1}, card vs CPU: max |card - CPU| / max |CPU| "
+          f"{cpu_err:.2e} <= {CPU_REL}")
+    check(cpu_err <= CPU_REL, "gallery codes card vs CPU")
+
+    # the padded tail batch (1,100 = 8 x 128 + 76) against an unpadded
+    # forward of its rows, and duplicate-row padding as a planted fault
+    tail = np.arange((nbatch - 1) * cfg.batch_size, n)
+    alone, _, _, _ = encode_dataset(model, probe_ds, MODS,
+                                    batch_size=len(tail), indices=tail)
+    dup = np.concatenate([tail, np.full(cfg.batch_size - len(tail),
+                                         tail[-1])])
+    skewed, _, _, _ = encode_dataset(model, probe_ds, MODS,
+                                     batch_size=cfg.batch_size, indices=dup)
+    want_t = torch.from_numpy(alone)
+    tail_err = rel_err(torch.from_numpy(probe.codes[tail]), want_t)
+    dup_err = rel_err(torch.from_numpy(skewed[:len(tail)]), want_t)
+    out["tail_rel_err"], out["tail_dup_padding_rel_err"] = tail_err, dup_err
+    print(f"padded tail batch ({len(tail)} rows in 128) vs unpadded: "
+          f"{tail_err:.2e} <= {CPU_REL} (bitwise: "
+          f"{bool(np.array_equal(probe.codes[tail], alone))}); duplicate-row "
+          f"padding reads {dup_err:.2e} > {CPU_REL}")
+    check(tail_err <= CPU_REL, "padded tail batch")
+    check(dup_err > CPU_REL, "duplicate-row padding passes the tail limit")
+    return out
+
+
+def serve_phase(make_model, gallery_ds, probe_ds, card, big=65536):
+    """SignatureService at the flagship's width: identify per bucket,
+    enroll/remove, and a gallery of `big` random codes.  make_model(dtype)
+    builds the net."""
+    from ugaitnet_tpu_torch.eval.serving import SignatureService
+    out = {"identify_raw_ms": {}}
+    vols = {m: probe_ds.modalities[m].volumes for m in MODS}
+
+    def raw(idx):
+        return {f"raw_{m}": vols[m][idx] for m in MODS}
+
+    for dtype in ("float32", "bfloat16"):
+        svc = SignatureService(make_model(dtype), MODS, knn=3,
+                               buckets=BUCKETS)
+        t0 = time.perf_counter()
+        svc.build_gallery(gallery_ds, batch_size=128)
+        svc.warmup()
+        build_s = time.perf_counter() - t0
+        feeds = {b: raw(np.arange(b)) for b in BUCKETS}
+        times = {b: median_ms(lambda b=b: svc.identify_raw(feeds[b]))
+                 for b in BUCKETS}
+        out["identify_raw_ms"][dtype] = times
+        print(f"serve {dtype}: build_gallery ({len(gallery_ds)} clips) + "
+              f"warmup {build_s:.1f} s; identify_raw ms by bucket (median of"
+              f" 5, host copies included) "
+              + ", ".join(f"{b}: {t:.2f}" for b, t in times.items())
+              + f" [{card}]")
+        if dtype == "float32":
+            fp32 = svc
+    svc = fp32
+    labels, dists = svc.identify_raw(raw(np.arange(128)))
+    codes = svc.encode_raw(raw(np.arange(128)))
+    check(np.array_equal(svc.identify_codes(codes)[0], labels),
+          "identify_raw vs identify_codes of its own codes")
+    check(bool(np.isfinite(dists).all()) and dists.shape == (128, 3),
+          "identify distances")
+
+    # enroll 64 probe codes twice (128 rows, in place), then remove a label
+    new, new_labels = codes[:64], probe_ds.labels[:64]
+    buf, cap = svc._gallery_codes, svc._capacity
+    ptr, used = buf.data_ptr(), svc._rows_used
+    svc.enroll(np.concatenate([new, new]), np.concatenate([new_labels,
+                                                           new_labels]))
+    check(svc._gallery_codes.data_ptr() == ptr and svc._capacity == cap,
+          "enroll did not write in place")
+    check(torch.equal(svc._gallery_codes[used:used + 128].cpu(),
+                      torch.from_numpy(np.concatenate([new, new]))),
+          "enrolled rows on the card")
+    check(np.array_equal(svc.identify_codes(new)[0], new_labels),
+          "self-queries after enroll")
+    gone = int(new_labels[0])
+    removed = svc.remove(gone)
+    keep = new_labels != gone
+    got = svc.identify_codes(new)[0]
+    check(np.array_equal(got[keep], new_labels[keep]) and gone not in got,
+          "self-queries after remove")
+    out["enroll_remove"] = {"enrolled": 128, "removed_rows": removed,
+                            "capacity": int(svc._capacity)}
+    print(f"enroll 128 rows in place (capacity {svc._capacity}), remove "
+          f"label {gone} ({removed} rows): {int(keep.sum())} self-queries "
+          f"keep their labels, none returns {gone}")
+
+    # a 65,536-code random unit-norm gallery (4.2 GB float32 on the card)
+    g, d = big, codes.shape[1]
+    gen = torch.Generator(device=svc.device).manual_seed(5)
+    x = torch.randn(g, d, device=svc.device, generator=gen)
+    x /= torch.linalg.vector_norm(x, dim=1, keepdim=True)
+    big = x.cpu().numpy()
+    del x
+    big_labels = np.arange(g) % 1000
+    t0 = time.perf_counter()
+    svc.set_gallery(big, big_labels)
+    set_s = time.perf_counter() - t0
+    queries = big[:128] + 1e-4 * np.random.RandomState(0).randn(
+        128, d).astype(np.float32)
+    _, qd = svc.identify_codes(queries)
+    check(bool((qd[:, 0] < 0.05).all() and (qd[:, 1] > 1.0).all()),
+          "big gallery: each query's nearest row is its own")
+    call_ms = median_ms(lambda: svc.identify_codes(queries))
+    qdev = torch.from_numpy(queries).to(svc.device)
+    with torch.no_grad():
+        dev_ms = cuda_ms(lambda: svc._dist_vote(qdev, 3), 10)
+    b_ms, b_by = bound(4 * g * d + 4 * 128 * d + 12 * g, 2 * 128 * g * d)
+    out["big_gallery"] = {"G": g, "D": d, "set_gallery_s": set_s,
+                          "identify_codes_ms": call_ms,
+                          "device_ms": dev_ms, "bound_ms": b_ms,
+                          "bound_by": b_by}
+    print(f"identify_codes bucket 128 vs G={g} D={d}: call {call_ms:.2f} ms "
+          f"(median of 5, host copies included), device (distances + top-k +"
+          f" vote, CUDA events) {dev_ms:.3f} ms, bound {b_ms:.3f} ms "
+          f"({b_by}); set_gallery {set_s:.1f} s [{card}]")
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device")
+    t_start = time.perf_counter()
     from ugaitnet_tpu_torch.core.config import (BranchConfig, DataConfig,
                                                 ModelConfig, TrainConfig)
     from ugaitnet_tpu_torch.data.pipeline import preprocess_batch
@@ -449,7 +739,7 @@ def main():
         r = dict(raw)
         r["raw_of"] = raw["raw_of"] ^ i
         r["raw_gray"] = raw["raw_gray"] ^ i
-        vols, flags, labels = preprocess_batch(r, *mods, 3, False, dcfg,
+        vols, flags, labels = preprocess_batch(r, *mods, 3, True, dcfg,
                                                generator=mask_gen)
         batch = Batch(tuple(vols), tuple(flags), labels)
         if i == nsteps - 1:     # the state the plain step starts from
@@ -573,6 +863,22 @@ def main():
         check(cpu_err[k] <= CPU_REL, f"card vs CPU {k}")
         check(tf32_err[k] > CPU_REL, f"card vs CPU {k}: TF32 passes the limit")
 
+    # ---- 5. eval and 6. serve (no kernel of this repo on these paths) ----
+    del state, plain_state, plain_model, model, cpu_model, before
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    gallery_ds, probe_ds = casia_sets()
+    print(f"synthetic CASIA-B-shaped sets: 2 x {len(gallery_ds)} clips in "
+          f"{time.perf_counter() - t0:.1f} s")
+    K.reset_launch_counts()
+    eval_model = UGaitNet(flagship(), seed=0)
+    eval_res = eval_phase(eval_model, gallery_ds, probe_ds, card)
+    del eval_model
+    serve_res = serve_phase(lambda dt: UGaitNet(flagship(dt), seed=0),
+                            gallery_ds, probe_ds, card)
+    print(f"triplet kernel launches during eval and serve: "
+          f"{K.fwd_launches}, {K.bwd_launches} (not on these paths)")
+
     kernels = [
         {"name": "triplet_fwd", "route": "cuda", "source": SRC,
          "replaces": f"{PALLAS}:159", "launches": launches["triplet_fwd"],
@@ -602,7 +908,9 @@ def main():
                       "signature_grad_rel_err": {"kernel": sig_err,
                                                  **sig_faults},
                       "card_vs_cpu_rel_err": {"tf32_off": cpu_err,
-                                              "tf32_on": tf32_err}}))
+                                              "tf32_on": tf32_err},
+                      "eval": eval_res, "serve": serve_res}))
+    print(f"wall time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

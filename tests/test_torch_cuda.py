@@ -1,5 +1,6 @@
-"""The CUDA batch-all triplet kernel against the port's plain version, on
-the card.  Imports no JAX, so it runs where only the port is installed:
+"""The CUDA batch-all triplet kernel against the port's plain version, and
+the serving path's card-side ops (top-k order, augmentation) against the
+same ops on the CPU, on the card.  Imports no JAX, so it runs where only the port is installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
@@ -121,3 +122,42 @@ def test_cuda_counts_and_g_exact(cuda, parts, b, d, seed, k):
     assert torch.equal(count.to(torch.int64), act.sum((1, 2, 3)))
     want_g = (act.sum(3) - act.sum(2)).to(torch.float32) * scale[:, None, None]
     assert torch.equal(g, want_g)
+
+
+@pytest.mark.cuda
+def test_cuda_nearest_tie_order(cuda):
+    """Exact ties on the card keep jax.lax.top_k's order: the lower gallery
+    index first, as on the CPU."""
+    from ugaitnet_tpu_torch.ops.knn import knn_predict, nearest, pairwise_l2
+    rng = np.random.RandomState(0)
+    base = rng.randn(50, 64).astype(np.float32)
+    gallery = np.concatenate([base, base, base])          # every row 3 times
+    probes = torch.from_numpy(base[:20])
+    d2 = pairwise_l2(probes, torch.from_numpy(gallery)).to(cuda)
+    d2[:, :50] = d2[:, 50:100]               # bitwise ties on the card too
+    vals, idx = nearest(d2, 5)
+    want_vals, want_idx = nearest(d2.cpu(), 5)
+    assert torch.equal(idx.cpu(), want_idx)
+    assert torch.equal(vals.cpu(), want_vals)
+    labels = np.arange(150) % 7
+    assert np.array_equal(
+        knn_predict(base, gallery, labels, k=3, device=cuda),
+        knn_predict(base, gallery, labels, k=3, device="cpu"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("is_of", [True, False])
+def test_cuda_augment_matches_cpu(cuda, is_of):
+    """The float64-emulated fused multiply-adds of the affine and the
+    photometric min-max agree across devices within 1e-6 of the largest
+    value (float64 FMA contraction on the card may move a value by an
+    ulp)."""
+    from ugaitnet_tpu_torch.ops import augment as A
+    gen = torch.Generator().manual_seed(3)
+    p = A.random_transform_params(gen, 6, device="cpu")
+    p = p._replace(apply=torch.ones(6, dtype=torch.bool))
+    x = torch.randn(6, 25, 60, 60, 2 if is_of else 1, generator=gen)
+    want = A.augment_batch(x, p, is_of)
+    got = A.augment_batch(x.to(cuda), A.TransformParams(
+        *(v.to(cuda) for v in p)), is_of).cpu()
+    assert float((got - want).abs().max()) <= 1e-6 * float(want.abs().max())

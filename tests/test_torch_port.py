@@ -178,9 +178,15 @@ def test_preprocess_draws_two_modality_masks():
     assert np.array_equal(gray[:, 1] + gray[:, 2], np.ones(6))
     assert np.array_equal(of[:, 1] + of[:, 2], present)
     assert np.array_equal(labels.numpy(), np.repeat(raw["labels"], 3))
-    with pytest.raises(NotImplementedError, match="augmentation"):
-        preprocess_batch(raw, ("of", "gray"), (2, 1), (100.0, 1.0), 2, 1,
-                         True, tconfig.DataConfig(), device="cpu")
+    # with augmentation on, the same generator draws the same masks after
+    # the transform params
+    gen = torch.Generator().manual_seed(0)
+    vols, aug_flags, _ = preprocess_batch(
+        raw, ("of", "gray"), (2, 1), (100.0, 1.0), 2, 3, True,
+        tconfig.DataConfig(), generator=gen, device="cpu")
+    assert all(bool(torch.isfinite(v).all()) for v in vols)
+    of, gray = (f.reshape(6, 3).numpy() for f in aug_flags)
+    assert np.array_equal(gray[:, 1] + gray[:, 2], np.ones(6))
 
 
 def test_sign_max_ties_first_wins():
@@ -275,15 +281,23 @@ def test_missing_modality_equals_noise_input(tiny):
 
 
 def test_unported_options_raise():
+    from ugaitnet_tpu_torch.eval.serving import SignatureService
     jcfg = graft._flagship_cfg(tiny=True)
     cfg = _tcfg(jcfg)
     import dataclasses
     for bad in (dataclasses.replace(cfg, extra_dense=(8,)),
                 dataclasses.replace(cfg, aux_losses=True),
                 dataclasses.replace(cfg, branches=(dataclasses.replace(
-                    cfg.branches[0], kind="conv2d"),) + cfg.branches[1:])):
+                    cfg.branches[0], kind="conv2d"),) + cfg.branches[1:]),
+                dataclasses.replace(cfg, branches=(dataclasses.replace(
+                    cfg.branches[0], kind="conv3d"),) + cfg.branches[1:])):
         with pytest.raises(NotImplementedError):
             UGaitNet(bad, device="cpu")
+    model = UGaitNet(cfg, device="cpu")
+    for kw in (dict(quantized=True), dict(gallery_dtype="int8"),
+               dict(mesh=object())):
+        with pytest.raises(NotImplementedError, match="item 9"):
+            SignatureService(model, ("of", "gray"), **kw)
 
 
 def test_entry_points_default_to_cuda():

@@ -1,25 +1,122 @@
-"""Device-side preprocessing of a raw batch.
+"""Host -> device input pipeline.
 
-Port of ``ugaitnet_tpu/data/pipeline.py:preprocess_batch`` without
-augmentation: dequantize/normalize -> frames -> expand-level modality
-dropout.  Batch layout after expansion (the reference's interleaving): rows
+Port of ``ugaitnet_tpu/data/pipeline.py``.  The host side is a thin gather
+over the packed dataset (``data/schema.py``); dequantization,
+normalization, joint augmentation and expand-level modality dropout run on
+the device over the whole batch.
+
+Batch layout after expansion (the reference's interleaving): rows
 ``[i*E .. i*E+E-1]`` are sample i's original copy followed by its
-modality-dropout copies, so P*K label blocks survive.
+modality-dropout copies, so P*K label blocks survive.  Augmentation runs
+before the expansion, so every copy of a sample shares its augmentation,
+and a dropped copy's noise fill replaces the augmented volume.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+import os
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from ugaitnet_tpu_torch.core.config import DataConfig
+from ugaitnet_tpu_torch.core.config import MODALITY_CHANNELS, DataConfig
 from ugaitnet_tpu_torch.core.device import DeviceLike, resolve_device
+from ugaitnet_tpu_torch.data.schema import GaitDataset
+from ugaitnet_tpu_torch.ops import augment as A
 from ugaitnet_tpu_torch.ops.preprocess import (apply_modality_dropout,
-                                                dequant_scale, dequantize,
+                                                clip_augment, dequant_scale,
+                                                dequantize,
+                                                frames_to_planes,
                                                 normalize_uint8,
                                                 planes_to_frames)
+
+
+class HostBatch(dict):
+    """Raw numpy arrays staged for one batch: per-modality uint8/int16
+    volumes + present flags, plus dense labels."""
+
+
+def gather_host_batch(ds: GaitDataset, idx: np.ndarray,
+                      modalities: Sequence[str],
+                      labmap: Optional[Dict[int, int]] = None) -> HostBatch:
+    """Gather the rows ``idx`` of every modality (``np.take`` over the
+    memory-mapped stores)."""
+    out = HostBatch()
+    for m in modalities:
+        store = ds.modalities[m]
+        out[f"raw_{m}"] = np.take(store.volumes, idx, axis=0)
+        out[f"present_{m}"] = store.present[idx].astype(np.float32)
+    labels = ds.labels[idx]
+    if labmap is not None:
+        labels = np.asarray([labmap[int(l)] for l in labels], np.int32)
+    out["labels"] = labels.astype(np.int32)
+    # joint-dataset source selector (BothDatasets regime)
+    src = getattr(ds, "dataset_source", None)
+    out["source"] = (src[idx].astype(np.int32) if src is not None
+                     else np.zeros(len(idx), np.int32))
+    return out
+
+
+def compute_normalization_stats(ds: GaitDataset, modality: str,
+                                source: Optional[np.ndarray] = None
+                                ) -> Tuple[np.ndarray, np.ndarray]:
+    """Per-plane mean/std of the *normalized* volumes (the BothDatasets
+    per-dataset normalization h5s, mj_dataGeneratorMMUWYHBothDatasets.py:89-99).
+    Returns (mean (T*C,), std (T*C,))."""
+    store = ds.modalities[modality]
+    idx = (np.arange(len(ds)) if source is None
+           else np.where(np.asarray(source))[0])
+    # stream in chunks: a memory-mapped train split is tens of GB, and one
+    # float64 copy of it would exhaust the host
+    chunk = 512
+    n_planes = store.volumes.shape[1]
+    tot = np.zeros(n_planes, np.float64)
+    tot2 = np.zeros(n_planes, np.float64)
+    count = 0
+    for s in range(0, len(idx), chunk):
+        x = np.asarray(store.volumes[idx[s:s + chunk]], np.float64)
+        if store.compress_factor > 1:
+            x = x / store.compress_factor
+            if ds.ntype == 2:
+                x = x * 0.1
+        else:
+            x = x / 255.0
+            if modality != "silhouette":
+                x = x - 0.5
+        tot += x.sum(axis=(0, 2, 3))
+        tot2 += np.square(x).sum(axis=(0, 2, 3))
+        count += x.shape[0] * x.shape[2] * x.shape[3]
+    mean = tot / max(count, 1)
+    var = np.maximum(tot2 / max(count, 1) - np.square(mean), 0.0)
+    return (mean.astype(np.float32),
+            np.maximum(np.sqrt(var), 1e-6).astype(np.float32))
+
+
+def save_norm_stats(experdir: str, norm_stats: Dict) -> str:
+    """Persist {modality: (mean, std)} standardization next to the
+    experiment's checkpoints, in the JAX package's file format."""
+    path = os.path.join(experdir, "norm_stats.npz")
+    np.savez(path,
+             **{f"mean_{m}": v[0] for m, v in norm_stats.items()},
+             **{f"std_{m}": v[1] for m, v in norm_stats.items()})
+    return path
+
+
+def load_norm_stats(experdir: str, modalities) -> Optional[Dict]:
+    """Load save_norm_stats() output; None when the experiment was trained
+    without standardization."""
+    path = os.path.join(experdir, "norm_stats.npz")
+    if not os.path.exists(path):
+        return None
+    z = np.load(path)
+    missing = [m for m in modalities
+               if f"mean_{m}" not in z or f"std_{m}" not in z]
+    if missing:
+        raise ValueError(
+            f"{path} lacks stats for modalities {missing}; it was written "
+            "for a different branch set than this experiment's config")
+    return {m: (z[f"mean_{m}"], z[f"std_{m}"]) for m in modalities}
 
 
 def _dropout_masks(generator: Optional[torch.Generator], batch: int,
@@ -27,28 +124,49 @@ def _dropout_masks(generator: Optional[torch.Generator], batch: int,
                    device: torch.device) -> torch.Tensor:
     """(B, E, nmods) 0/1 keep-masks for the expand copies (copy 0 = all 1).
 
-    2-modality rule (the reference's expand_level): copy 1 disables a
-    random modality, copy 2 the other; copies past 3 repeat copy 1.  The
-    coin comes from ``generator``, so the masks differ from the JAX
-    package's key stream; pass ``masks=`` to ``preprocess_batch`` to
-    reproduce a given draw.
+    2 modalities (the reference's expand_level): copy 1 disables a random
+    modality, copy 2 the other; copies past 3 repeat copy 1.  3+ modalities
+    (__gen_batchMM): even samples disable min(ex+1, nmods-1) modalities
+    drawn with replacement (a count drawn from [1, nmods) when expand is
+    2); odd samples keep exactly modality (i + ex) % nmods.  Draws come
+    from ``generator``, so the masks differ from the JAX package's key
+    stream; pass ``masks=`` to ``preprocess_batch`` to reproduce a draw.
     """
     if expand <= 1:
         return torch.ones((batch, expand, nmods), dtype=torch.float32,
                           device=device)
-    if nmods != 2:
-        raise NotImplementedError(
-            "modality-dropout masks for 3+ modalities are not ported yet "
-            "(ROADMAP.md, 'Training augmentation')")
-    choice = (torch.rand(batch, generator=generator) < 0.5).long().to(device)
-    eye = torch.eye(nmods, dtype=torch.float32, device=device)
-    copies = [torch.ones((batch, nmods), dtype=torch.float32, device=device),
-              1.0 - eye[choice]]
-    if expand > 2:
-        copies.append(1.0 - eye[1 - choice])
-    while len(copies) < expand:
-        copies.append(copies[1])
-    return torch.stack(copies, dim=1)
+    gdev = A.generator_device(generator)
+    eye = torch.eye(nmods, dtype=torch.float32)
+    ones = torch.ones((batch, nmods), dtype=torch.float32)
+    if nmods == 2:
+        choice = (torch.rand(batch, generator=generator, device=gdev)
+                  < 0.5).long().cpu()
+        copies = [ones, 1.0 - eye[choice]]
+        if expand > 2:
+            copies.append(1.0 - eye[1 - choice])
+        while len(copies) < expand:
+            copies.append(copies[1])
+        return torch.stack(copies, dim=1).to(device)
+
+    rows = torch.arange(batch)
+    even = (rows % 2 == 0)[:, None]
+    copies = [ones]
+    for ex in range(expand - 1):
+        if expand > 2:
+            ndis = torch.full((batch,), min(ex + 1, nmods - 1))
+        else:
+            ndis = torch.randint(1, nmods, (batch,), generator=generator,
+                                 device=gdev).cpu()
+        picks = torch.randint(nmods, (batch, nmods - 1), generator=generator,
+                              device=gdev).cpu()
+        mask_even = ones
+        for d in range(nmods - 1):
+            active = (d < ndis).to(torch.float32)[:, None]
+            mask_even = mask_even * ((1.0 - eye[picks[:, d]]) * active
+                                     + (1.0 - active))
+        mask_odd = eye[(rows + ex) % nmods]
+        copies.append(torch.where(even, mask_even, mask_odd))
+    return torch.stack(copies, dim=1).to(device)
 
 
 def _expand_rows(x: torch.Tensor, expand: int) -> torch.Tensor:
@@ -62,6 +180,28 @@ def _as_tensor(v, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.array(v, copy=True, order="C")).to(device)
 
 
+def _transform_params(params: Optional[Sequence[A.TransformParams]],
+                      generator: Optional[torch.Generator], batch: int,
+                      modalities: Tuple[str, ...], cfg: DataConfig,
+                      device: torch.device) -> List[A.TransformParams]:
+    """One affine/flip draw per sample, shared across modalities (the
+    reference copies tx/ty and flip between modality transforms,
+    ...single.py:401-410); zoom and photometric params per modality, with
+    OF photometric off.  Given ``params`` (one per modality) are shared the
+    same way, so the JAX package's per-modality draws reproduce its batch."""
+    if params is None:
+        params = [A.random_transform_params(
+            generator, batch, shift_choices=cfg.shift_range,
+            zoom_range=cfg.zoom_range, brightness_range=cfg.brightness_range,
+            channel_shift_range=cfg.channel_shift_range,
+            photometric=(m != "of"), device=device) for m in modalities]
+    params = [A.TransformParams(*(_as_tensor(v, device) for v in p))
+              for p in params]
+    base = params[0]
+    return [p._replace(apply=base.apply, tx=base.tx, ty=base.ty,
+                       flip=base.flip) for p in params]
+
+
 def preprocess_batch(raw: Dict[str, object], modalities: Tuple[str, ...],
                      channels: Tuple[int, ...],
                      compress_factors: Tuple[float, ...], ntype: int,
@@ -69,42 +209,51 @@ def preprocess_batch(raw: Dict[str, object], modalities: Tuple[str, ...],
                      normalize: bool = False,
                      masks: Optional[torch.Tensor] = None,
                      generator: Optional[torch.Generator] = None,
+                     params: Optional[Sequence[A.TransformParams]] = None,
                      device: DeviceLike = None
                      ) -> Tuple[List[torch.Tensor], List[torch.Tensor],
                                 torch.Tensor]:
-    """dequant -> frames -> expand + modality dropout, on ``device``.
+    """dequant -> augment -> expand + modality dropout, on ``device``.
 
     raw: ``raw_<m>`` (B, T*C, H, W) int16/uint8, ``present_<m>`` (B,),
     ``labels`` (B,), and with ``normalize`` also ``source`` (B,) and
     ``norm_mean_<m>`` / ``norm_std_<m>`` (n_sources, T*C); numpy arrays or
-    tensors.  masks: optional (B, E, nmods) keep-masks; by default they are
-    drawn from ``generator``.
+    tensors.  masks: optional (B, E, nmods) keep-masks; params: optional
+    per-modality ``TransformParams`` (used when ``augmenting``); both are
+    drawn from ``generator`` when not given.
 
     Returns (volumes[(B*E, T, H, W, C_m)], use_flags[(B*E,)], labels (B*E,)).
     """
-    if augmenting:
-        raise NotImplementedError(
-            "augmenting=True is not ported yet (ROADMAP.md, 'Training "
-            "augmentation')")
     dev = resolve_device(device)
     labels = _as_tensor(raw["labels"], dev)
     batch = labels.shape[0]
+    if augmenting:
+        params = _transform_params(params, generator, batch, modalities, cfg,
+                                   dev)
+        # one per-sample OF clip coin (...single.py:412-417)
+        clip_coin = params[0].clip_of.reshape(-1, 1, 1, 1)
 
     volumes, use_flags = [], []
     for mi, m in enumerate(modalities):
         x = _as_tensor(raw[f"raw_{m}"], dev)
+        quantized = compress_factors[mi] > 1.0
+        if quantized and augmenting and cfg.of_clip_max > 0:
+            # the clip augment acts on the raw values, before dequantizing
+            x = x.to(torch.float32)
+            x = torch.where(clip_coin, clip_augment(x, cfg.of_clip_max,
+                                                    cfg.of_clip_min), x)
         if normalize:
             # per-dataset per-plane standardization (BothDatasets regime)
             src = _as_tensor(raw["source"], dev).long()
             mean = _as_tensor(raw[f"norm_mean_{m}"], dev)[src][:, :, None, None]
             std = _as_tensor(raw[f"norm_std_{m}"], dev)[src][:, :, None, None]
-        if compress_factors[mi] > 1.0 and normalize:    # quantized (OF)
+        if quantized and normalize:
             # one rounding for x * scale - mean, as XLA's fused multiply-add
-            # (exact in float64 for int16 inputs)
+            # (float64 holds the float32 product exactly)
             scale = dequant_scale(compress_factors[mi], ntype)
             x = (x.to(torch.float64) * scale - mean.to(torch.float64)
                  ).to(torch.float32)
-        elif compress_factors[mi] > 1.0:
+        elif quantized:
             x = dequantize(x, compress_factors[mi], ntype)
         else:
             x = normalize_uint8(x, silhouette=(m == "silhouette"))
@@ -112,6 +261,10 @@ def preprocess_batch(raw: Dict[str, object], modalities: Tuple[str, ...],
                 x = x - mean
         if normalize:
             x = x / std
+        if augmenting:
+            x = frames_to_planes(A.augment_batch(
+                planes_to_frames(x, channels[mi]), params[mi],
+                is_of=(m == "of")))
         volumes.append(x)
         use_flags.append(_as_tensor(raw[f"present_{m}"], dev)
                          .to(torch.float32))
@@ -130,3 +283,57 @@ def preprocess_batch(raw: Dict[str, object], modalities: Tuple[str, ...],
         out_vols.append(planes_to_frames(v, channels[mi]))
         out_flags.append(u)
     return out_vols, out_flags, _expand_rows(labels, expand)
+
+
+class GaitPipeline:
+    """Sampler indices -> device-ready batches."""
+
+    def __init__(self, ds: GaitDataset, cfg: DataConfig,
+                 modalities: Sequence[str],
+                 labmap: Optional[Dict[int, int]] = None,
+                 indices: Optional[np.ndarray] = None,
+                 augment: Optional[bool] = None,
+                 norm_stats: Optional[Dict[str, Tuple[np.ndarray,
+                                                      np.ndarray]]] = None,
+                 device: DeviceLike = None):
+        self.ds = ds
+        self.cfg = cfg
+        self.modalities = tuple(modalities)
+        self.labmap = labmap
+        self.indices = (np.arange(len(ds)) if indices is None
+                        else np.asarray(indices))
+        self.channels = tuple(MODALITY_CHANNELS[m] for m in modalities)
+        self.compress_factors = tuple(
+            float(ds.modalities[m].compress_factor) for m in modalities)
+        self.augmenting = cfg.augment if augment is None else augment
+        # norm_stats[m] = (means (S, T*C), stds (S, T*C)) per dataset source
+        self.norm_stats = norm_stats
+        self.device = resolve_device(device)
+
+    def load(self, batch_idx: np.ndarray,
+             generator: Optional[torch.Generator] = None,
+             expand: Optional[int] = None):
+        """batch_idx indexes into this pipeline's view (self.indices);
+        augmentation and dropout masks draw from ``generator``."""
+        raw = gather_host_batch(self.ds, self.indices[batch_idx],
+                                self.modalities, self.labmap)
+        if self.norm_stats is not None:
+            src_max = int(np.max(raw["source"], initial=0))
+            for m in self.modalities:
+                mean, std = self.norm_stats[m]
+                mean2 = np.atleast_2d(mean).astype(np.float32)
+                if src_max >= mean2.shape[0]:
+                    # an out-of-range source row would standardize one
+                    # dataset with another's statistics
+                    raise ValueError(
+                        f"norm_stats[{m!r}] has {mean2.shape[0]} source "
+                        f"row(s) but the batch contains dataset_source="
+                        f"{src_max}; pass one (mean, std) row per dataset")
+                raw[f"norm_mean_{m}"] = mean2
+                raw[f"norm_std_{m}"] = np.atleast_2d(std).astype(np.float32)
+        e = self.cfg.expand_level if expand is None else expand
+        return preprocess_batch(
+            raw, self.modalities, self.channels, self.compress_factors,
+            self.ds.ntype, e, self.augmenting, self.cfg,
+            normalize=self.norm_stats is not None, generator=generator,
+            device=self.device)

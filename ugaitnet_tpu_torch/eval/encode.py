@@ -1,0 +1,102 @@
+"""Signature extraction for evaluation.
+
+Port of ``ugaitnet_tpu/eval/encode.py``: the reference's
+``evalUWYHNet_set`` encode loop (mains/mj_testUWYHGaitNet_open_casiab.py:
+55-245) batched on the device.  Iterate the dataset deterministically
+(expand 1, no shuffle, trailing partial batch included), tap the requested
+embedding, optionally add mirrored copies, and return codes + labels +
+video ids + cams on the host.
+
+typecode parity (:157-166): 1 -> "signature", 3 -> "flatten", else "code".
+Rank-3 part signatures are flattened per sample, so kNN sees one vector per
+subsequence.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ugaitnet_tpu_torch.core.config import DataConfig
+from ugaitnet_tpu_torch.data.pipeline import GaitPipeline
+from ugaitnet_tpu_torch.data.sampler import SequentialSampler
+from ugaitnet_tpu_torch.data.schema import GaitDataset
+from ugaitnet_tpu_torch.models.network import UGaitNet
+from ugaitnet_tpu_torch.ops.augment import mirror_volume
+
+TYPECODE_TAP = {1: "signature", 3: "flatten"}
+
+
+def _tap(out: Dict[str, torch.Tensor], typecode: int) -> torch.Tensor:
+    name = TYPECODE_TAP.get(typecode, "code")
+    x = out.get(name, out["signature"])
+    if x.ndim == 3:
+        x = x.reshape(x.shape[0], -1)
+    return x
+
+
+def encode_dataset(model: UGaitNet, ds: GaitDataset,
+                   modalities: Sequence[str],
+                   typecode: int = 3, batch_size: int = 128,
+                   use_mods: Optional[Sequence[float]] = None,
+                   mirror: bool = False,
+                   indices: Optional[np.ndarray] = None,
+                   norm_stats=None
+                   ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """Returns (codes (N,D), labels, video_ids, cams) in raw label space,
+    encoded on ``model``'s device.
+
+    use_mods masks whole modalities at encode time (the eval scripts'
+    use_mod1/use_mod2 args and the TUM all-combos protocol).  mirror=True
+    appends a horizontally mirrored copy of every batch (the usemirror
+    gallery option, mj_testUWYHGaitNet_open_casiab.py:194-206).
+    norm_stats: the per-dataset standardization the model was trained with.
+    """
+    cfg = DataConfig(batch_size=batch_size, expand_level=1, augment=False)
+    pipe = GaitPipeline(ds, cfg, modalities, labmap=None, indices=indices,
+                        augment=False, norm_stats=norm_stats,
+                        device=model.device)
+    n = len(pipe.indices)
+    if n == 0:
+        # loud instead of an opaque concatenate error at the end: an empty
+        # selection is a data mistake, and (0, D) codes would only surface
+        # later as a silent rank1 = 0.0
+        raise ValueError(
+            f"encode_dataset: no samples to encode in '{ds.name}' "
+            f"(dataset len {len(ds)}, indices filter "
+            f"{'set' if indices is not None else 'absent'})")
+    if use_mods is None:
+        use_mods = [1.0] * len(modalities)
+
+    codes, metas = [], []
+    with torch.inference_mode():
+        for batch_idx in SequentialSampler(n, batch_size).epoch():
+            # pad the trailing partial batch to the full size with
+            # use_flags == 0 rows: gating zeroes their embeddings, so under
+            # l2_mode="reference" (batch-axis signature L2) they add nothing
+            # to the column norms and the real rows equal an unpadded
+            # forward; duplicate-row padding would skew every real code
+            real = len(batch_idx)
+            valid = None
+            if real < batch_size:
+                batch_idx = np.concatenate(
+                    [batch_idx, np.full(batch_size - real, batch_idx[-1])])
+                valid = torch.zeros(batch_size, device=model.device)
+                valid[:real] = 1.0
+            vols, flags, _ = pipe.load(batch_idx, expand=1)
+            flags = [f * u for f, u in zip(flags, use_mods)]
+            if valid is not None:
+                flags = [f * valid for f in flags]
+            codes.append(_tap(model(vols, flags), typecode)[:real].cpu())
+            metas.append(batch_idx[:real])
+            if mirror:
+                mvols = [mirror_volume(v, is_of=(m == "of"))
+                         for v, m in zip(vols, modalities)]
+                codes.append(_tap(model(mvols, flags), typecode)[:real].cpu())
+                metas.append(batch_idx[:real])
+
+    sel = pipe.indices[np.concatenate(metas)]
+    return (torch.cat(codes).numpy(), np.asarray(ds.labels[sel]),
+            np.asarray(ds.video_ids[sel]), np.asarray(ds.cams[sel]))

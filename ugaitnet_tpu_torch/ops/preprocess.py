@@ -43,14 +43,21 @@ def dequant_scale(compress_factor: float, ntype: int = 2) -> float:
     return float(scale)
 
 
+def clip_augment(x: torch.Tensor, clip_max: float,
+                 clip_min: float) -> torch.Tensor:
+    """OF magnitude clip-augment on raw values: |x| outside [clip_min,
+    clip_max] -> 1e-8; clip_max <= 0 disables it, min-side wipe included."""
+    x = x.to(torch.float32)
+    if clip_max <= 0:
+        return x
+    return torch.where((x.abs() > clip_max) | (x.abs() < clip_min),
+                       torch.tensor(1e-8, dtype=x.dtype, device=x.device), x)
+
+
 def dequantize(raw: torch.Tensor, compress_factor: float, ntype: int = 2,
                clip_max: float = 0.0, clip_min: float = 0.0) -> torch.Tensor:
     """Quantized (e.g. int16 OF) planes -> float32, with optional clip-augment."""
-    x = raw.to(torch.float32)
-    # clip_max <= 0 disables the whole clip augment, min-side wipe included
-    if clip_max > 0:
-        x = torch.where((x.abs() > clip_max) | (x.abs() < clip_min),
-                        torch.tensor(1e-8, dtype=x.dtype, device=x.device), x)
+    x = clip_augment(raw, clip_max, clip_min)
     return x * dequant_scale(compress_factor, ntype)
 
 
