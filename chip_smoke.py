@@ -11,7 +11,9 @@ channels (32, 64, 128), part_dim 256, 62 parts, sign_max merge, 74 classes):
   1. kernels vs plain: the CUDA batch-all triplet forward and backward
      against ``ops/triplet.py`` on the same CUDA tensors, at the flagship
      (62, 120, 256), small, ragged (D not a multiple of the kernels'
-     chunks, B not of 4) and degenerate cases, B = 256 and B = 512; and
+     chunks, B not of 4) and degenerate cases, B = 256 and B = 512, and
+     phase 7's two validation batches (62, 40, 256) with their labels
+     (the second wrapped to full size, no P x K pattern); and
      the kernels against themselves, exactly: dist bitwise symmetric with
      a zero diagonal, the per-part counts equal to the active triplets
      torch counts over the kernel's own dist, and the kernel's g equal,
@@ -45,7 +47,29 @@ channels (32, 64, 128), part_dim 256, 62 parts, sign_max merge, 74 classes):
      bfloat16; 128 rows enrolled in place, one label removed, self-queries
      answered with their own labels; then a 65,536 x 15,872 random
      unit-norm gallery (4.2 GB) and identify_codes at bucket 128 against
-     its bound.
+     its bound;
+  7. trainer (this slice's main path): a CASIA-B-train-shaped synthetic set
+     (74 subjects x 4 videos x 2 subsequences, 592 clips) packed to disk;
+     run A calls ``cli.train.main`` with the flagship's flags for 3 epochs
+     (augmentation on, async checkpoints, validation every epoch), with
+     deterministic cuDNN.  Checks: finite train losses, val loss and EER,
+     ckpt/1..3, ckpt/best and controller.json, the native gather in use,
+     the triplet kernels' launches inside fit (launch counts over the whole
+     fit, and torch.profiler over epoch 1: forward = train steps +
+     validation batches, backward = train steps), each validation batch's
+     kernel triplet value on its signature, at margin 0.2 and at the
+     batch's median distance (where it is not 0), against the plain
+     reduction over the kernel's dist (rtol 1e-5), with exact counts and g
+     and d^2 against the plain on the scale of the norms (labels equal to
+     phase 1's validation cases), the state
+     restored from ckpt/3 equal to fit's bitwise.  Run B runs the same CLI in a
+     subprocess, is killed (SIGKILL) once ckpt/1 is published, restarts,
+     must report resuming and land on run A's per-epoch train losses within
+     1e-6.  Then ``cli.evaluate.main`` restores run A's 'best' and runs the
+     camera-pair protocol over phase 5's sets, saved packed, and must
+     report all 11 probe cameras.  Prints the steps per epoch, the fit's
+     time per step against the isolated step, the blocking part of each
+     async save and the validation time.
 
 Gradient limits scale with each case, and every run reads planted faults
 (a backward without the g^T term, with the negative role's sign flipped,
@@ -61,10 +85,17 @@ TF32 is off for matmuls and convolutions throughout (parity), apart from
 the one forward of phase 4 that shows the card-vs-CPU limit would catch it.
 """
 
+import contextlib
 import copy
+import gc
+import importlib.util
+import io
 import json
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -101,6 +132,31 @@ KNN_TIE_REL = 1e-4
 KNN_TIE_SHARE = 0.01
 MODS = ("of", "gray")
 BUCKETS = (1, 8, 32, 128)
+
+# crash-resume: max |resumed - uninterrupted| per-epoch train loss (the JAX
+# package's kill-and-resume test's limit)
+RESUME_ATOL = 1e-6
+FIT_EPOCHS = 3
+VAL_PERC = 0.08
+FLAGSHIP_FLAGS = ["--mod0", "of", "--mod1", "gray", "--nclasses", "74",
+                  "--mergefun", "sign_max", "--bs", "40", "--lr", "1e-4",
+                  "--margin", "0.2", "--wver", "1.0", "--wid", "0.1",
+                  "--repetitions", "5", "--expandlevel", "3",
+                  "--epochs", str(FIT_EPOCHS), "--savemodelfreq", "1",
+                  "--valperc", str(VAL_PERC), "--asyncckpt"]
+# the train CLI in a fresh process, with cuDNN's deterministic algorithms
+# and TF32 off, as run A runs in this one
+TRAIN_BOOT = """
+import sys, torch
+torch.backends.cudnn.deterministic = True
+torch.backends.cudnn.benchmark = False
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+sys.path.insert(0, sys.argv[1])
+from ugaitnet_tpu_torch.cli.train import main
+main(sys.argv[2:])
+"""
+REPO = os.path.dirname(os.path.abspath(__file__))
 
 SRC = "ugaitnet_tpu_torch/csrc/triplet_kernel.cu"
 FWD_KERNELS = ("triplet_fwd_kernel",)
@@ -223,6 +279,67 @@ def check_faults(name, kernel_err, faults):
           f"{name}: a planted fault reads under the limit")
 
 
+def unit_scale(pcnt):
+    """The backward's per-part scale for an upstream gradient of 1."""
+    return torch.where(pcnt > 0, 1.0 / (pcnt.clamp_min(1.0) * pcnt.shape[0]),
+                       torch.zeros_like(pcnt)).contiguous()
+
+
+def exact_checks(x, lab, margin=0.2):
+    """The kernels against themselves on their own dist: symmetry and
+    diagonal, integer counts and g, bitwise.  Returns the kernel's dist and
+    max |dist - plain| / max |plain|."""
+    from ugaitnet_tpu_torch.ops.cuda import triplet_kernel as K
+    from ugaitnet_tpu_torch.ops.triplet import pairwise_dist
+    dist, _, pcnt = K.launch_fwd(x, lab, margin)
+    scale = unit_scale(pcnt)
+    _, g = K.launch_bwd(x, lab, dist, scale, margin)
+    check(torch.equal(dist, dist.transpose(1, 2)),
+          "dist is not bitwise symmetric")
+    check(bool((torch.diagonal(dist, dim1=1, dim2=2) == 0).all()),
+          "dist has a nonzero diagonal")
+    same = lab[:, None] == lab[None, :]
+    valid = same[:, :, None] & ~same[:, None, :]
+    counts, g_want = [], []
+    for d in dist:                       # act[a, j, k], one part at a time
+        act = ((margin + d[:, :, None] - d[:, None, :]) > 0) & valid
+        counts.append(act.sum())
+        g_want.append(act.sum(2) - act.sum(1))   # as positive - as negative
+    counts = torch.stack(counts)
+    g_want = torch.stack(g_want).to(torch.float32) * scale[:, None, None]
+    check(torch.equal(pcnt.to(torch.int64), counts),
+          f"active counts {pcnt.tolist()} vs {counts.tolist()}")
+    check(torch.equal(g, g_want), "g differs from counts x scale")
+    e = x[None] if x.ndim == 2 else x.transpose(0, 1)
+    return dist, rel_err(dist, pairwise_dist(e))
+
+
+def sq_dist_err(dist, x):
+    """max |d^2 - plain d^2| over 2 max |x_i|^2, the largest over parts.
+    Both compute |x_i|^2 + |x_j|^2 - 2 x_i.x_j in float32, whose rounding
+    scales with the norms, not with d: trained signatures with
+    near-duplicate rows lose relative precision in small d in both alike."""
+    from ugaitnet_tpu_torch.ops.triplet import pairwise_dist
+    e = x.transpose(0, 1).to(torch.float32)
+    plain = pairwise_dist(e)
+    scale = 2.0 * (e * e).sum(-1).amax(-1)
+    return float(((dist * dist - plain * plain).abs().amax((1, 2))
+                  / scale).max())
+
+
+def value_over_dist(dist, lab, margin):
+    """The plain batch-all reduction (``ops/triplet.py``) over a given
+    (P, B, B) dist: per part the mean hinge over active triplets, then the
+    mean over parts."""
+    same = lab[:, None] == lab[None, :]
+    valid = (same[:, :, None] & ~same[:, None, :]).to(torch.float32)
+    t = torch.clamp_min(margin + dist[:, :, :, None] - dist[:, :, None, :],
+                        0.0) * valid
+    s, n = t.sum((1, 2, 3)), (t > 0.0).to(torch.float32).sum((1, 2, 3))
+    return float(torch.where(n > 0.0, s / n.clamp_min(1.0),
+                             torch.zeros_like(s)).mean())
+
+
 def median_ms(fn, n=5):
     """Median host-clock ms of n calls of fn() after one warm-up call; fn
     returns host data, so each call ends synchronized."""
@@ -255,6 +372,24 @@ def knn_float64(probes, gallery, labels, k):
     kth = np.take_along_axis(d, order[:, k - 1:k + 1], 1)
     near_tie = kth[:, 1] - kth[:, 0] <= KNN_TIE_REL * kth[:, 0]
     return pred, near_tie, swapped != pred
+
+
+def val_batch_labels():
+    """Dense labels of the trainer's validation batches in phase 7: the
+    train set's layout (74 subjects x 4 videos x 2 subsequences, in
+    order), its video-grouped split and ``Trainer._val_metrics``'s fixed
+    shuffle, the last batch wrapped to full size from the start."""
+    from ugaitnet_tpu_torch.data.sampler import split_train_val_by_video
+    labels = np.repeat(np.arange(74), 8)
+    _, val = split_train_val_by_video(np.repeat(np.arange(74 * 4), 2),
+                                      perc=VAL_PERC, seed=0)
+    order = np.random.RandomState(1234).permutation(len(val))
+    bs = min(len(val), 40)
+    out = []
+    for i in range(-(-len(val) // bs)):
+        b = order[i * bs:(i + 1) * bs]
+        out.append(labels[val[np.concatenate([b, order[:bs - len(b)]])]])
+    return out
 
 
 def casia_sets():
@@ -486,6 +621,398 @@ def serve_phase(make_model, gallery_ds, probe_ds, card, big=65536):
     return out
 
 
+@contextlib.contextmanager
+def wrapped(owner, name, make):
+    """Replace owner.name by make(original) for the block (instrumentation
+    of the trainer's methods; the package itself is unchanged)."""
+    orig = owner.__dict__[name]
+    setattr(owner, name, make(orig))
+    try:
+        yield
+    finally:
+        setattr(owner, name, orig)
+
+
+def timed_calls(store):
+    """A wrapper factory that appends each call's host seconds to store."""
+    def make(fn):
+        def call(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                store.append(time.perf_counter() - t0)
+        return call
+    return make
+
+
+def flat_tensors(tree, prefix=""):
+    if isinstance(tree, torch.Tensor):
+        return {prefix: tree}
+    out = {}
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            out.update(flat_tensors(v, f"{prefix}/{k}"))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            out.update(flat_tensors(v, f"{prefix}/{i}"))
+    return out
+
+
+def epoch_losses(experdir, key="train/loss"):
+    from ugaitnet_tpu_torch.obsv.logger import read_metrics
+    return {int(r["step"]): r[key] for r in read_metrics(experdir)
+            if key in r}
+
+
+def trainer_phase(card, gallery_dir, probe_dir, isolated_step_ms, train_ms):
+    """7. The trainer at the flagship's width through the CLIs."""
+    from ugaitnet_tpu_torch.cli import evaluate as cli_eval
+    from ugaitnet_tpu_torch.cli import train as cli_train
+    from ugaitnet_tpu_torch.core import checkpoint as ckpt
+    from ugaitnet_tpu_torch.core.config import load_json
+    from ugaitnet_tpu_torch.data import native
+    from ugaitnet_tpu_torch.data.sampler import split_train_val_by_video
+    from ugaitnet_tpu_torch.data.synthetic import make_synthetic_dataset
+    from ugaitnet_tpu_torch.models.network import UGaitNet
+    from ugaitnet_tpu_torch.obsv.logger import MetricsLogger
+    from ugaitnet_tpu_torch.ops.cuda import triplet_kernel as K
+    from ugaitnet_tpu_torch.ops.triplet import (batch_all_triplet_loss,
+                                                pairwise_dist)
+    from ugaitnet_tpu_torch.train import trainer as TR
+    from ugaitnet_tpu_torch.train.train_step import init_state
+    from ugaitnet_tpu_torch.utils import net_utils
+    out = {}
+    work = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    proc = None
+    try:
+        t0 = time.perf_counter()
+        ds = make_synthetic_dataset(num_subjects=74, videos_per_subject=4,
+                                    subseqs_per_video=2, template_seed=0,
+                                    seed=7, name="casia_train")
+        data = os.path.join(work, "casia_train")
+        ds.save(data)
+        raw_mb = sum(s.volumes.nbytes for s in ds.modalities.values()) / 1e6
+        tr_idx, val_idx = split_train_val_by_video(ds.video_ids,
+                                                   perc=VAL_PERC, seed=0)
+        steps = len(tr_idx) // 40
+        val_bs = min(len(val_idx), 40)
+        val_batches = -(-len(val_idx) // val_bs)
+        out.update(clips=len(ds), raw_mb=raw_mb, steps_per_epoch=steps,
+                   val_clips=len(val_idx), val_batches=val_batches)
+        del ds
+        print(f"trainer data: {out['clips']} clips ({raw_mb:.1f} MB raw "
+              f"int16 OF + uint8 gray) packed in "
+              f"{time.perf_counter() - t0:.1f} s; {len(tr_idx)} train / "
+              f"{len(val_idx)} val clips, {steps} steps per epoch, "
+              f"{val_batches} val batches")
+
+        # ---- run A: cli.train in this process --------------------------
+        torch.backends.cudnn.deterministic = True
+        base_a = os.path.join(work, "A")
+        flags_a = FLAGSHIP_FLAGS + ["--datadir", data, "--experdir", base_a]
+        got, epoch_s, val_s, validate_s, save_s, write_s = {}, [], [], [], \
+            [], []
+        encode_s, export_s, filters_s = [], [], []
+        prof = {}
+        val_seen = []
+
+        def kept_eval(eval_step):
+            """eval_step, keeping each validation batch's triplet value (the
+            kernel's), its signature and labels for the plain triplet."""
+            def call(model, batch):
+                store = {}
+                hook = model.register_forward_hook(
+                    lambda _m, _i, o: store.__setitem__(
+                        "sig", o["signature"].detach().clone(
+                            memory_format=torch.contiguous_format)))
+                try:
+                    metrics = eval_step(model, batch)
+                finally:
+                    hook.remove()
+                val_seen.append((metrics["triplet"], store["sig"],
+                                 batch.labels.clone()))
+                return metrics
+            return call
+
+        def capture_fit(fit):
+            def call(self, ds, **kw):
+                got["trainer"] = self
+                self.eval_step = kept_eval(self.eval_step)
+                got["state"] = fit(self, ds, **kw)
+                return got["state"]
+            return call
+
+        def profiled_epoch(run_epoch):
+            """Times each epoch; profiles from the start of epoch 1 to the
+            start of epoch 2 (epoch 1's steps and its validation)."""
+            from torch.profiler import ProfilerActivity, profile
+
+            def call(self, state, pipe, sampler, epoch, seed):
+                if epoch == 0:
+                    prof["p"] = profile(activities=[ProfilerActivity.CPU,
+                                                    ProfilerActivity.CUDA])
+                    prof["p"].__enter__()
+                elif epoch == 1:
+                    torch.cuda.synchronize()
+                    prof["p"].__exit__(None, None, None)
+                t0 = time.perf_counter()
+                res = run_epoch(self, state, pipe, sampler, epoch, seed)
+                epoch_s.append(time.perf_counter() - t0)
+                return res
+            return call
+
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        with wrapped(TR.Trainer, "fit", capture_fit), \
+                wrapped(TR.Trainer, "_epoch", profiled_epoch), \
+                wrapped(TR.Trainer, "_val_metrics", timed_calls(val_s)), \
+                wrapped(TR.Trainer, "_validate", timed_calls(validate_s)), \
+                wrapped(ckpt.AsyncCheckpointWriter, "save",
+                        timed_calls(save_s)), \
+                wrapped(ckpt, "_publish", timed_calls(write_s)), \
+                wrapped(TR, "encode_dataset", timed_calls(encode_s)), \
+                wrapped(MetricsLogger, "export_embeddings",
+                        timed_calls(export_s)), \
+                wrapped(net_utils, "save_filter_grid", timed_calls(filters_s)):
+            exp_a = cli_train.main(flags_a)
+        fit_s = time.perf_counter() - t0
+        launches = {"triplet_fwd": K.fwd_launches,
+                    "triplet_bwd": K.bwd_launches}
+        out["launches_fit"] = launches
+        want = {"triplet_fwd": FIT_EPOCHS * (steps + val_batches),
+                "triplet_bwd": FIT_EPOCHS * steps}
+        check(launches == want, f"fit launches {launches}, expected {want}")
+        from torch.autograd import DeviceType
+        names = [e.name for e in prof["p"].events()
+                 if e.device_type == DeviceType.CUDA]
+        seen = {k: sum(k in n for n in names) for k in
+                FWD_KERNELS + BWD_KERNELS}
+        out["profiler_epoch1_launches"] = seen
+        check(seen == {"triplet_fwd_kernel": steps + val_batches,
+                       "triplet_rows_kernel": steps,
+                       "triplet_finish_kernel": steps},
+              f"torch.profiler over epoch 1 saw {seen}")
+        print(f"run A: cli.train {FIT_EPOCHS} epochs in {fit_s:.1f} s; "
+              f"triplet kernel launches in fit {launches} (= epochs x "
+              f"(steps + val batches), epochs x steps); torch.profiler over "
+              f"epoch 1 saw {seen}")
+
+        # validation's triplet, the kernel's, on each batch's signature: at
+        # margin 0.2 and at the batch's median distance, where about half
+        # the triplets are active, the kernels against themselves (exact
+        # counts and g over their own dist), their d^2 against the plain
+        # one on the scale of the norms, and the value against the plain
+        # reduction over that dist.
+        # The plain version's own value is printed beside it: a triplet
+        # whose hinge lies within rounding of 0 may count on one side only,
+        # which moves a part's mean by 1 / its active count.
+        want_labels = val_batch_labels()
+        check(len(val_seen) == FIT_EPOCHS * val_batches,
+              f"{len(val_seen)} validation batches")
+        val_rows = []
+        for i, (k_fit, sig, lab) in enumerate(val_seen):
+            check(np.array_equal(lab.cpu().numpy(),
+                                 want_labels[i % val_batches]),
+                  f"validation batch {i}: labels differ from phase 1's")
+            med = float(pairwise_dist(sig.transpose(0, 1)).median())
+            for m in (0.2, med):
+                kv = (float(k_fit) if m == 0.2 else
+                      float(K.batch_all_triplet_loss_cuda(sig, lab, m)))
+                dist, derr = exact_checks(sig, lab, m)
+                val_rows.append({"batch": i, "margin": m, "kernel": kv,
+                                 "over_kernel_dist": value_over_dist(
+                                     dist, lab, m),
+                                 "plain": float(batch_all_triplet_loss(
+                                     sig, lab, m)),
+                                 "dist_rel_err": derr,
+                                 "sq_dist_err": sq_dist_err(dist, sig)})
+        out["val_triplet"] = val_rows
+        print("validation triplet (kernel, plain over the kernel's dist, "
+              "plain) by batch and margin: " + "; ".join(
+                  f"{r['batch']} m={r['margin']:.4g}: {r['kernel']:.7g}, "
+                  f"{r['over_kernel_dist']:.7g}, {r['plain']:.7g}"
+                  for r in val_rows)
+              + f"; dist vs plain: max |d - plain| / max |plain| <= "
+              f"{max(r['dist_rel_err'] for r in val_rows):.2e}, max |d^2 - "
+              f"plain d^2| / (2 max |x|^2) <= "
+              f"{max(r['sq_dist_err'] for r in val_rows):.2e} (limit "
+              f"{DIST_REL})")
+        check(all(abs(r["kernel"] - r["over_kernel_dist"])
+                  <= VAL_RTOL * abs(r["over_kernel_dist"])
+                  for r in val_rows),
+              "validation triplet vs the plain reduction over its dist")
+        check(all(r["sq_dist_err"] <= DIST_REL for r in val_rows),
+              "validation dist vs plain")
+        check(all(r["kernel"] > 0 for r in val_rows if r["margin"] != 0.2),
+              "no active triplet at the median margin")
+        del val_seen[:]
+
+        recs = {k: epoch_losses(exp_a, k) for k in
+                ("train/loss", "val/loss", "val/eer")}
+        for k, v in recs.items():
+            check(sorted(v) == list(range(1, FIT_EPOCHS + 1)) and all(
+                x is not None and np.isfinite(x) for x in v.values()),
+                f"{k} per epoch: {v}")
+        out["losses"] = recs
+        ck = sorted(os.listdir(os.path.join(exp_a, "ckpt")))
+        check(ck == [str(e) for e in range(1, FIT_EPOCHS + 1)] + ["best"]
+              and os.path.exists(os.path.join(exp_a, "controller.json")),
+              f"checkpoints {ck}")
+        check(native.get_lib() is not None
+              and os.path.exists(native.LIB_PATH),
+              "the native gather library is not in use")
+        print(f"run A per epoch: train/loss {recs['train/loss']}, val/loss "
+              f"{recs['val/loss']}, val/eer {recs['val/eer']}; checkpoints "
+              f"{ck} + controller.json; native gather {native.LIB_PATH}")
+
+        # the state fit returned against the one restored from ckpt/3
+        state = got["state"]
+        cfg = load_json(os.path.join(exp_a, "config.json"))
+        restored = ckpt.restore_checkpoint(exp_a, FIT_EPOCHS, init_state(
+            UGaitNet(cfg["model"], seed=1), cfg["train"]))
+        a = flat_tensors({"m": state.model.state_dict(),
+                          "o": state.optimizer.state_dict()})
+        b = flat_tensors({"m": restored.model.state_dict(),
+                          "o": restored.optimizer.state_dict()})
+        check(a.keys() == b.keys() and all(torch.equal(a[k].cpu(),
+                                                       b[k].cpu())
+                                           for k in a)
+              and restored.step == state.step,
+              "the state restored from the last checkpoint differs")
+        ckpt_mb = sum(t.numel() * t.element_size() for t in a.values()) / 1e6
+        nparams = sum(p.numel() for p in state.model.parameters())
+        print(f"ckpt/{FIT_EPOCHS} restores fit's state bitwise "
+              f"({len(a)} tensors, {nparams} parameters, {ckpt_mb:.1f} MB "
+              f"with the optimizer's moments)")
+        # run B's processes need the card's memory this one holds: objects
+        # in reference cycles go first, then the allocator's cache
+        del state, restored, a, b
+        got.clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        iso_ms = isolated_step_ms()
+        fit_ms = [1e3 * t / steps for t in epoch_s]
+        steady = float(np.mean(fit_ms[1:]))
+        per_epoch_val = [v + w for v, w in zip(val_s, validate_s)]
+        out.update(epoch_s=epoch_s, fit_ms_per_step=fit_ms,
+                   fit_ms_per_step_steady=steady,
+                   isolated_step_ms_deterministic=iso_ms,
+                   isolated_step_ms_phase3=train_ms,
+                   loop_overhead_ms=steady - iso_ms,
+                   val_metrics_s=val_s, validate_s=validate_s,
+                   validation_s=per_epoch_val, encode_s=encode_s,
+                   export_embeddings_s=export_s, filter_png_s=filters_s,
+                   pil=importlib.util.find_spec("PIL") is not None,
+                   save_blocking_ms=[
+                       1e3 * t for t in save_s],
+                   write_ms=[1e3 * t for t in write_s],
+                   ckpt_mb=ckpt_mb, parameters=nparams)
+        print(f"fit: {steps} steps per epoch; ms per step by epoch "
+              f"{[round(t, 2) for t in fit_ms]} (epoch 1 includes cuDNN "
+              f"warm-up and the profiler); epochs 2-{FIT_EPOCHS} "
+              f"{steady:.2f} ms/step against the isolated step, same "
+              f"deterministic cuDNN, {iso_ms:.2f} ms (phase 3, default "
+              f"cuDNN: {train_ms:.2f} ms): loop overhead "
+              f"{steady - iso_ms:.2f} ms/step [{card}]")
+        print(f"validation per epoch {[round(t, 3) for t in per_epoch_val]}"
+              f" s (eval-step metrics {[round(t, 3) for t in val_s]} s + "
+              f"encode, exports and EER {[round(t, 3) for t in validate_s]} "
+              f"s, of which encode {[round(t, 3) for t in encode_s]} s, "
+              f"projector + sprite export {[round(t, 3) for t in export_s]} "
+              f"s, filter PNG {[round(t, 3) for t in filters_s]} s; PIL "
+              f"{'present' if out['pil'] else 'missing'}); async "
+              f"save blocking {[round(1e3 * t, 2) for t in save_s]} ms per "
+              f"save() ({len(save_s)} saves), background writes "
+              f"{[round(1e3 * t, 1) for t in write_s]} ms [{card}]")
+
+        # ---- run B: killed once ckpt/1 is published, then restarted ------
+        gc.collect()
+        torch.cuda.empty_cache()
+        free, total = torch.cuda.mem_get_info()
+        print(f"card memory before run B: {free / 1e9:.1f} GB free of "
+              f"{total / 1e9:.1f} GB ({torch.cuda.memory_allocated() / 1e9:.2f}"
+              f" GB allocated, {torch.cuda.memory_reserved() / 1e9:.2f} GB "
+              f"reserved by this process)")
+        check(free > 0.7 * total, "this process holds the card's memory")
+        base_b = os.path.join(work, "B")
+        exp_b = os.path.join(base_b, os.path.basename(exp_a))
+        cmd = [sys.executable, "-c", TRAIN_BOOT, REPO] + FLAGSHIP_FLAGS + [
+            "--datadir", data, "--experdir", base_b]
+        log = open(os.path.join(work, "run_b.log"), "w+")
+        proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT)
+        deadline = time.time() + 600
+        while (ckpt.latest_checkpoint_step(exp_b) or 0) < 1:
+            if proc.poll() is not None or time.time() > deadline:
+                log.seek(0)
+                check(False, "run B ended or stalled before its first "
+                      f"checkpoint:\n{log.read()[-3000:]}")
+            time.sleep(0.1)
+        proc.kill()
+        proc.wait(timeout=60)
+        killed_at = ckpt.latest_checkpoint_step(exp_b)
+        check(killed_at < FIT_EPOCHS, f"run B finished ({killed_at}) "
+                                      "before it was killed")
+        res = subprocess.run(cmd, capture_output=True, text=True,
+                             timeout=900)
+        log.seek(0)
+        check(res.returncode == 0, f"run B restart failed:\n"
+              f"{log.read()[-2000:]}\n{res.stdout[-3000:]}"
+              f"{res.stderr[-3000:]}")
+        check(f"resumed from epoch {killed_at}" in res.stdout,
+              f"run B did not report resuming: {res.stdout[-2000:]}")
+        loss_b = epoch_losses(exp_b)
+        diffs = {e: abs(loss_b[e] - v) for e, v in
+                 recs["train/loss"].items() if e in loss_b}
+        out["resume"] = {"killed_at": killed_at, "losses_b": loss_b,
+                         "abs_diff": diffs}
+        wb = ckpt.restore_raw(exp_b, FIT_EPOCHS)["model"]
+        wa = ckpt.restore_raw(exp_a, FIT_EPOCHS)["model"]
+        w_diff = max(float((wa[k] - wb[k]).abs().max()) for k in wa)
+        print(f"run B: SIGKILL after ckpt/{killed_at}, restarted, resumed at "
+              f"epoch {killed_at}; train/loss {loss_b}; |B - A| per epoch "
+              f"{diffs} (limit {RESUME_ATOL}); final weights max |B - A| "
+              f"{w_diff:.3e}")
+        check(sorted(diffs) == list(range(1, FIT_EPOCHS + 1))
+              and max(diffs.values()) <= RESUME_ATOL,
+              "the resumed run left run A's losses")
+
+        # ---- evaluate run A's best over phase 5's sets -----------------
+        outfile = os.path.join(work, "results.json")
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            cli_eval.main(["--experdir", exp_a, "--epoch", "best",
+                           "--gallery", gallery_dir, "--probes", probe_dir,
+                           "--protocol", "casiab", "--knn", "3", "--bs",
+                           "128", "--outfile", outfile])
+        eval_s = time.perf_counter() - t0
+        with open(outfile) as f:
+            results = json.load(f)[os.path.basename(probe_dir)]
+        cams = {k: v for k, v in results.items() if k != "confusions_file"}
+        check(len(cams) == 11 and all(
+            0.0 <= r[m] <= 1.0 for r in cams.values()
+            for m in ("rank1_subseq", "rank1_video")),
+            f"evaluate results for {sorted(cams)}")
+        mean_sub = float(np.mean([r["rank1_subseq"] for r in cams.values()]))
+        mean_vid = float(np.mean([r["rank1_video"] for r in cams.values()]))
+        out["evaluate"] = {"probe_cameras": len(cams), "seconds": eval_s,
+                           "mean_rank1_subseq": mean_sub,
+                           "mean_rank1_video": mean_vid}
+        print(f"cli.evaluate on run A's best ({FIT_EPOCHS} epochs of the "
+              f"flagship on synthetic data): {len(cams)} probe cameras, mean "
+              f"Rank-1 subseq {mean_sub:.4f}, video {mean_vid:.4f}, "
+              f"{eval_s:.1f} s")
+    finally:
+        torch.backends.cudnn.deterministic = False
+        if proc is not None and proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=60)
+        shutil.rmtree(work, ignore_errors=True)
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device")
@@ -515,6 +1042,13 @@ def main():
     t0 = time.perf_counter()
     build.load("triplet_kernel")
     print(f"kernel build: {time.perf_counter() - t0:.1f} s")
+    # the host gather's library, built here so no timed phase pays for it
+    from ugaitnet_tpu_torch.data import native
+    t0 = time.perf_counter()
+    check(native.get_lib() is not None,
+          "the native gather did not build (host C++ compiler)")
+    print(f"native gather build: {time.perf_counter() - t0:.1f} s "
+          f"({native.LIB_PATH})")
     with open(f"{build.BUILD_DIR}/triplet_kernel.log") as f:
         ptxas = [ln.strip() for ln in f if "registers" in ln or "spill" in ln
                  or "Compiling entry" in ln]
@@ -582,54 +1116,24 @@ def main():
               f"{t['bwd_bound'][0]:.4f} ms ({t['bwd_bound'][1]}) [{card}]")
         return t
 
-    def unit_scale(pcnt):
-        """The backward's per-part scale for an upstream gradient of 1."""
-        return torch.where(pcnt > 0, 1.0 / (pcnt.clamp_min(1.0) *
-                                             pcnt.shape[0]),
-                           torch.zeros_like(pcnt)).contiguous()
-
-    def exact_checks(x, lab, margin=0.2):
-        """The kernels against themselves on their own dist: symmetry and
-        diagonal, integer counts and g, bitwise; and max |dist - plain| /
-        max |plain|."""
-        dist, _, pcnt = K.launch_fwd(x, lab, margin)
-        scale = unit_scale(pcnt)
-        _, g = K.launch_bwd(x, lab, dist, scale, margin)
-        check(torch.equal(dist, dist.transpose(1, 2)),
-              "dist is not bitwise symmetric")
-        check(bool((torch.diagonal(dist, dim1=1, dim2=2) == 0).all()),
-              "dist has a nonzero diagonal")
-        same = lab[:, None] == lab[None, :]
-        valid = same[:, :, None] & ~same[:, None, :]
-        counts, g_want = [], []
-        for d in dist:                       # act[a, j, k], one part at a time
-            act = ((margin + d[:, :, None] - d[:, None, :]) > 0) & valid
-            counts.append(act.sum())
-            g_want.append(act.sum(2) - act.sum(1))   # as positive - as negative
-        counts = torch.stack(counts)
-        g_want = torch.stack(g_want).to(torch.float32) * scale[:, None, None]
-        check(torch.equal(pcnt.to(torch.int64), counts),
-              f"active counts {pcnt.tolist()} vs {counts.tolist()}")
-        check(torch.equal(g, g_want), "g differs from counts x scale")
-        e = x[None] if x.ndim == 2 else x.transpose(0, 1)
-        plain = pairwise_dist(e)
-        return rel_err(dist, plain)
-
     pk = lambda n: np.repeat(np.arange(n[0]), n[1])          # P x K labels
+    val1, val2 = val_batch_labels()
     cases = [("flagship", 62, 120, 256, pk((12, 10))),
              ("small", 1, 12, 8, pk((3, 4))),
              ("rank2", None, 10, 8, pk((5, 2))),
              ("ragged", 3, 50, 40, np.arange(50) % 7),
              ("odd", 2, 37, 10, np.arange(37) % 5),
              ("B256", 16, 256, 256, np.arange(256) % 10),
-             ("B512", 4, 512, 256, np.arange(512) % 10)]
+             ("B512", 4, 512, 256, np.arange(512) % 10),
+             ("val batch 1", 62, 40, 256, val1),
+             ("val batch 2 (wrapped)", 62, 40, 256, val2)]
     results, times = {}, {}
     dist_err = {}
     for name, parts, b, d, labels in cases:
         x, lab, vp, vk, gk, gp = case(parts, b, d, labels)
         rel = abs(vk - vp) / abs(vp)
         gerr = rel_err(gk, gp)
-        dist_err[name] = exact_checks(x, lab)
+        dist_err[name] = exact_checks(x, lab)[1]
         print(f"kernel vs plain {name} {tuple(x.shape)}: value {vk:.7f} vs "
               f"{vp:.7f} (rel {rel:.2e}, tol {VAL_RTOL}); grad max abs err "
               f"{float((gk - gp).abs().max()):.2e}, max |grad| "
@@ -879,16 +1383,59 @@ def main():
     print(f"triplet kernel launches during eval and serve: "
           f"{K.fwd_launches}, {K.bwd_launches} (not on these paths)")
 
+    # ---- 7. the trainer through the CLIs ------------------------------------
+    sets = tempfile.mkdtemp(prefix="chip_smoke_sets_")
+    try:
+        gallery_dir = os.path.join(sets, "casia_gallery")
+        probe_dir = os.path.join(sets, "casia_probe")
+        gallery_ds.save(gallery_dir)
+        probe_ds.save(probe_dir)
+        del gallery_ds, probe_ds
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        def isolated_step_ms():
+            """Phase 3's step loop (raw batch on the card, augmenting
+            preprocess, synchronized steps), median of steps 3-7."""
+            st = init_state(UGaitNet(mcfg, seed=0), tcfg)
+            fn = make_train_step(mcfg, tcfg)
+            gen = torch.Generator().manual_seed(0)
+            times = []
+            for i in range(nsteps):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                r = dict(raw)
+                r["raw_of"] = raw["raw_of"] ^ i
+                r["raw_gray"] = raw["raw_gray"] ^ i
+                v, f, lab = preprocess_batch(r, *mods, 3, True, dcfg,
+                                             generator=gen)
+                fn(st, Batch(tuple(v), tuple(f), lab))
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            return float(np.median(times[warmup:]))
+
+        trainer_res = trainer_phase(card, gallery_dir, probe_dir,
+                                    isolated_step_ms, train_ms)
+    finally:
+        shutil.rmtree(sets, ignore_errors=True)
+
+    # launches: the trainer's fit (this slice's main path); by path, phase
+    # 3's train steps too
+    fit_launches = trainer_res["launches_fit"]
     kernels = [
         {"name": "triplet_fwd", "route": "cuda", "source": SRC,
-         "replaces": f"{PALLAS}:159", "launches": launches["triplet_fwd"],
+         "replaces": f"{PALLAS}:159", "launches": fit_launches["triplet_fwd"],
+         "launches_by_path": {"train_step": launches["triplet_fwd"],
+                              "fit": fit_launches["triplet_fwd"]},
          "max_abs_err": fwd_err, "ms": flag_t["fwd_ms"],
          "plain_ms": flag_t["plain_fwd_ms"],
          "bound_ms": flag_t["fwd_bound"][0],
          "bound_by": flag_t["fwd_bound"][1],
          "library_ms": None},
         {"name": "triplet_bwd", "route": "cuda", "source": SRC,
-         "replaces": f"{PALLAS}:187", "launches": launches["triplet_bwd"],
+         "replaces": f"{PALLAS}:187", "launches": fit_launches["triplet_bwd"],
+         "launches_by_path": {"train_step": launches["triplet_bwd"],
+                              "fit": fit_launches["triplet_bwd"]},
          "max_abs_err": bwd_err, "ms": flag_t["bwd_ms"],
          "plain_ms": flag_t["plain_bwd_ms"],
          "bound_ms": flag_t["bwd_bound"][0],
@@ -909,7 +1456,8 @@ def main():
                                                  **sig_faults},
                       "card_vs_cpu_rel_err": {"tf32_off": cpu_err,
                                               "tf32_on": tf32_err},
-                      "eval": eval_res, "serve": serve_res}))
+                      "eval": eval_res, "serve": serve_res,
+                      "trainer": trainer_res}))
     print(f"wall time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

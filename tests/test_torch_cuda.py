@@ -161,3 +161,90 @@ def test_cuda_augment_matches_cpu(cuda, is_of):
     got = A.augment_batch(x.to(cuda), A.TransformParams(
         *(v.to(cuda) for v in p)), is_of).cpu()
     assert float((got - want).abs().max()) <= 1e-6 * float(want.abs().max())
+
+
+def _packed_set(tmp_path):
+    from ugaitnet_tpu_torch.data.schema import GaitDataset
+    from ugaitnet_tpu_torch.data.synthetic import make_synthetic_dataset
+    make_synthetic_dataset(num_subjects=6, videos_per_subject=3,
+                           subseqs_per_video=2, seed=4).save(str(tmp_path))
+    return GaitDataset.load(str(tmp_path))          # memory-mapped stores
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("normalize", [False, True])
+def test_cuda_prefetch_loader_matches_synchronous_load(cuda, tmp_path,
+                                                       normalize):
+    """PrefetchLoader (gather on its thread into page-locked buffers,
+    non-blocking copies) yields bitwise the batches GaitPipeline.load gives
+    for the same (seed, epoch, i): augmentation and expand-3 dropout on,
+    with and without the plane-wise standardization (--normstats)."""
+    from ugaitnet_tpu_torch.core.config import DataConfig
+    from ugaitnet_tpu_torch.data.pipeline import (GaitPipeline,
+                                                  PrefetchLoader,
+                                                  batch_generator,
+                                                  compute_normalization_stats)
+    from ugaitnet_tpu_torch.data.sampler import BalancedGaitSampler
+    ds = _packed_set(tmp_path)
+    cfg = DataConfig(batch_size=8, expand_level=3, repetitions=2)
+    norm_stats = None
+    if normalize:
+        norm_stats = {}
+        for m in ("of", "gray"):
+            mean, std = compute_normalization_stats(ds, m)
+            norm_stats[m] = (mean[None], std[None])
+    pipe = GaitPipeline(ds, cfg, ("of", "gray"), labmap=ds.label_map(),
+                        norm_stats=norm_stats, device=cuda)
+    seed, epoch = 3, 2
+
+    def sampler():
+        return BalancedGaitSampler(ds.labels, ds.gaits, 8, 2, seed=seed)
+
+    got = list(PrefetchLoader(pipe, sampler(), seed, epoch))
+    want = [pipe.load(idx, batch_generator(seed, epoch, i))
+            for i, idx in enumerate(sampler().epoch())]
+    assert len(got) == len(want) == len(sampler()) > 1
+    for (gv, gf, gl), (wv, wf, wl) in zip(got, want):
+        assert gv[0].device.type == "cuda"
+        for a, b in zip(list(gv) + list(gf) + [gl], list(wv) + list(wf)
+                        + [wl]):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_cuda_checkpoint_restores_on_cuda_and_cpu(cuda, tmp_path):
+    """A state trained on the card restores bitwise onto the card and onto
+    the CPU: parameters, Adam's step counts and moments, the lr."""
+    from ugaitnet_tpu_torch.core import checkpoint as ckpt
+    from ugaitnet_tpu_torch.core.config import (BranchConfig, ModelConfig,
+                                                TrainConfig)
+    from ugaitnet_tpu_torch.models.network import UGaitNet
+    from ugaitnet_tpu_torch.train.train_step import init_state, set_lr
+    b = dict(kind="gaitset", gaitset_channels=(4, 4, 8), part_dim=8)
+    mcfg = ModelConfig(branches=(BranchConfig(modality="of", **b),
+                                 BranchConfig(modality="gray", **b)),
+                       merge="sign_max", nclasses=4)
+    tcfg = TrainConfig(lr=1e-3)
+    state = init_state(UGaitNet(mcfg, device=cuda), tcfg)
+    for _ in range(3):
+        state.optimizer.zero_grad()
+        sum((p * p).sum() for p in state.model.parameters()).backward()
+        state.optimizer.step()
+        state.step += 1
+    set_lr(state, 2.5e-4)
+    ckpt.save_checkpoint(str(tmp_path), 3, state)
+    for dev in (cuda, torch.device("cpu")):
+        fresh = ckpt.restore_checkpoint(str(tmp_path), 3, init_state(
+            UGaitNet(mcfg, device=dev, seed=5), tcfg))
+        assert fresh.step == 3
+        assert fresh.optimizer.param_groups[0]["lr"] == \
+            state.optimizer.param_groups[0]["lr"]
+        for k, v in state.model.state_dict().items():
+            got = fresh.model.state_dict()[k]
+            assert got.device.type == dev.type and torch.equal(got.cpu(),
+                                                               v.cpu()), k
+        want_st = state.optimizer.state_dict()["state"]
+        got_st = fresh.optimizer.state_dict()["state"]
+        for i, st in want_st.items():
+            for k, v in st.items():
+                assert torch.equal(got_st[i][k].cpu(), v.cpu()), (i, k)

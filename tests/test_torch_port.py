@@ -313,7 +313,11 @@ def test_entry_points_default_to_cuda():
     assert resolve_device("cpu").type == "cpu"
 
 
-BANNED = {"jax", "flax", "optax", "ugaitnet_tpu"}
+BANNED = {"jax", "flax", "optax", "orbax", "ugaitnet_tpu"}
+# the modules of the trainer slice, which must be among those scanned
+TRAINER_SLICE = ("train/schedule.py", "train/trainer.py", "obsv/logger.py",
+                 "utils/net_utils.py", "data/native.py", "core/checkpoint.py",
+                 "cli/train.py", "cli/evaluate.py")
 
 
 def _port_sources():
@@ -326,6 +330,8 @@ def _port_sources():
 def test_port_imports_no_jax():
     files = _port_sources()
     assert len(files) > 10
+    for rel in TRAINER_SLICE:
+        assert os.path.join(REPO, "ugaitnet_tpu_torch", rel) in files, rel
     for path in files:
         tree = ast.parse(open(path).read(), path)
         for node in ast.walk(tree):

@@ -202,8 +202,8 @@ def test_eval_step_and_plain_triplet_agree(runs):
         tcfg, triplet_kind="batch_all"))(model, tb)
     assert {k: float(v) for k, v in m1.items()} == \
         {k: float(v) for k, v in m2.items()}
-    with pytest.raises(NotImplementedError):
-        T.make_optimizer(dataclasses.replace(tcfg, optimizer="sgd"),
+    with pytest.raises(ValueError, match="unknown optimizer"):
+        T.make_optimizer(dataclasses.replace(tcfg, optimizer="rmsprop"),
                          model.parameters())
 
 

@@ -10,11 +10,19 @@ Batch layout after expansion (the reference's interleaving): rows
 modality-dropout copies, so P*K label blocks survive.  Augmentation runs
 before the expansion, so every copy of a sample shares its augmentation,
 and a dropped copy's noise fill replaces the augmented volume.
+
+``PrefetchLoader`` overlaps the host half (the native gather into
+page-locked buffers) with the card's work on a producer thread; the
+consumer copies to the card without blocking and preprocesses.  Batch i of
+an epoch draws from ``batch_generator(seed, epoch, i)``, so its draws do not
+depend on thread timing and a resumed run replays them.
 """
 
 from __future__ import annotations
 
 import os
+import queue
+import threading
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -22,6 +30,7 @@ import torch
 
 from ugaitnet_tpu_torch.core.config import MODALITY_CHANNELS, DataConfig
 from ugaitnet_tpu_torch.core.device import DeviceLike, resolve_device
+from ugaitnet_tpu_torch.data.native import gather_rows
 from ugaitnet_tpu_torch.data.schema import GaitDataset
 from ugaitnet_tpu_torch.ops import augment as A
 from ugaitnet_tpu_torch.ops.preprocess import (apply_modality_dropout,
@@ -37,15 +46,29 @@ class HostBatch(dict):
     volumes + present flags, plus dense labels."""
 
 
+_TORCH_DTYPE = {np.dtype(t).str: getattr(torch, t)
+                for t in ("uint8", "int16", "int32", "float32")}
+
+
 def gather_host_batch(ds: GaitDataset, idx: np.ndarray,
                       modalities: Sequence[str],
-                      labmap: Optional[Dict[int, int]] = None) -> HostBatch:
-    """Gather the rows ``idx`` of every modality (``np.take`` over the
-    memory-mapped stores)."""
+                      labmap: Optional[Dict[int, int]] = None,
+                      pin: bool = False) -> HostBatch:
+    """Gather the rows ``idx`` of every modality from the memory-mapped
+    stores (``data/native.py:gather_rows``).  pin: gather into page-locked
+    CPU tensors, so a non-blocking copy to the card does not wait for the
+    host; the arrays are numpy otherwise."""
     out = HostBatch()
     for m in modalities:
         store = ds.modalities[m]
-        out[f"raw_{m}"] = np.take(store.volumes, idx, axis=0)
+        if pin:
+            buf = torch.empty((len(idx), *store.volumes.shape[1:]),
+                              dtype=_TORCH_DTYPE[store.volumes.dtype.str],
+                              pin_memory=True)
+            gather_rows(store.volumes, idx, out=buf.numpy())
+            out[f"raw_{m}"] = buf
+        else:
+            out[f"raw_{m}"] = gather_rows(store.volumes, idx)
         out[f"present_{m}"] = store.present[idx].astype(np.float32)
     labels = ds.labels[idx]
     if labmap is not None:
@@ -55,6 +78,10 @@ def gather_host_batch(ds: GaitDataset, idx: np.ndarray,
     src = getattr(ds, "dataset_source", None)
     out["source"] = (src[idx].astype(np.int32) if src is not None
                      else np.zeros(len(idx), np.int32))
+    if pin:
+        for k, v in out.items():
+            if isinstance(v, np.ndarray):
+                out[k] = torch.from_numpy(v).pin_memory()
     return out
 
 
@@ -146,7 +173,7 @@ def _dropout_masks(generator: Optional[torch.Generator], batch: int,
             copies.append(1.0 - eye[1 - choice])
         while len(copies) < expand:
             copies.append(copies[1])
-        return torch.stack(copies, dim=1).to(device)
+        return torch.stack(copies, dim=1).to(device, non_blocking=True)
 
     rows = torch.arange(batch)
     even = (rows % 2 == 0)[:, None]
@@ -166,7 +193,7 @@ def _dropout_masks(generator: Optional[torch.Generator], batch: int,
                                      + (1.0 - active))
         mask_odd = eye[(rows + ex) % nmods]
         copies.append(torch.where(even, mask_even, mask_odd))
-    return torch.stack(copies, dim=1).to(device)
+    return torch.stack(copies, dim=1).to(device, non_blocking=True)
 
 
 def _expand_rows(x: torch.Tensor, expand: int) -> torch.Tensor:
@@ -175,9 +202,16 @@ def _expand_rows(x: torch.Tensor, expand: int) -> torch.Tensor:
 
 
 def _as_tensor(v, device: torch.device) -> torch.Tensor:
-    if isinstance(v, torch.Tensor):
-        return v.to(device)
-    return torch.from_numpy(np.array(v, copy=True, order="C")).to(device)
+    """v on ``device``.  A writable C-contiguous array (a fresh gather) is
+    taken as it is; a read-only or strided one (a memmap, a view) is copied
+    once.  Copies to the card do not block the host: from page-locked memory
+    they are asynchronous, from pageable memory CUDA stages them first."""
+    if not isinstance(v, torch.Tensor):
+        a = np.asarray(v)
+        if not (a.flags["C_CONTIGUOUS"] and a.flags["WRITEABLE"]):
+            a = np.array(a, copy=True, order="C")
+        v = torch.from_numpy(a)
+    return v.to(device, non_blocking=True)
 
 
 def _transform_params(params: Optional[Sequence[A.TransformParams]],
@@ -310,15 +344,17 @@ class GaitPipeline:
         self.norm_stats = norm_stats
         self.device = resolve_device(device)
 
-    def load(self, batch_idx: np.ndarray,
-             generator: Optional[torch.Generator] = None,
-             expand: Optional[int] = None):
-        """batch_idx indexes into this pipeline's view (self.indices);
-        augmentation and dropout masks draw from ``generator``."""
+    def gather(self, batch_idx: np.ndarray) -> HostBatch:
+        """The host half of ``load``: the raw rows of ``batch_idx`` (indices
+        into this pipeline's view, self.indices), page-locked when the
+        pipeline's device is a card.  Safe on a worker thread."""
         raw = gather_host_batch(self.ds, self.indices[batch_idx],
-                                self.modalities, self.labmap)
+                                self.modalities, self.labmap,
+                                pin=self.device.type == "cuda")
         if self.norm_stats is not None:
-            src_max = int(np.max(raw["source"], initial=0))
+            # np.asarray: on a card the source column is a page-locked
+            # tensor, and np.max passes `initial` on to Tensor.max
+            src_max = int(np.max(np.asarray(raw["source"]), initial=0))
             for m in self.modalities:
                 mean, std = self.norm_stats[m]
                 mean2 = np.atleast_2d(mean).astype(np.float32)
@@ -331,9 +367,112 @@ class GaitPipeline:
                         f"{src_max}; pass one (mean, std) row per dataset")
                 raw[f"norm_mean_{m}"] = mean2
                 raw[f"norm_std_{m}"] = np.atleast_2d(std).astype(np.float32)
+        return raw
+
+    def preprocess(self, raw: HostBatch,
+                   generator: Optional[torch.Generator] = None,
+                   expand: Optional[int] = None):
+        """The device half of ``load``: copy to the device and preprocess;
+        augmentation and dropout masks draw from ``generator``."""
         e = self.cfg.expand_level if expand is None else expand
         return preprocess_batch(
             raw, self.modalities, self.channels, self.compress_factors,
             self.ds.ntype, e, self.augmenting, self.cfg,
             normalize=self.norm_stats is not None, generator=generator,
             device=self.device)
+
+    def load(self, batch_idx: np.ndarray,
+             generator: Optional[torch.Generator] = None,
+             expand: Optional[int] = None):
+        """batch_idx indexes into this pipeline's view (self.indices);
+        augmentation and dropout masks draw from ``generator``."""
+        return self.preprocess(self.gather(batch_idx), generator, expand)
+
+
+def batch_generator(seed: int, epoch: int, index: int) -> torch.Generator:
+    """The CPU generator batch ``index`` of ``epoch`` draws its augmentation
+    and dropout masks from.  Seeded from (seed, epoch, index) alone, so the
+    draws do not depend on which thread gathered the batch, or when, and a
+    resumed run replays them (the JAX trainer folds the batch index into a
+    key made from hash((seed, epoch)))."""
+    return torch.Generator().manual_seed(hash((seed, epoch, index)) % 2 ** 63)
+
+
+# batches gathered ahead of the one being preprocessed: one overlaps the
+# card's step, the second absorbs a slow gather
+PREFETCH_DEPTH = 2
+
+
+class PrefetchLoader:
+    """One epoch of ``sampler`` through ``pipe``, the host gathers running
+    ahead on a producer thread.
+
+    The producer only gathers (``GaitPipeline.gather``: the native gather
+    releases the GIL, and on a card it fills page-locked buffers), at most
+    ``PREFETCH_DEPTH`` batches ahead.  The consumer, the caller's thread,
+    copies each batch to the device and preprocesses it with
+    ``batch_generator(seed, epoch, i)``, so no card work runs on the
+    producer.  An exception in the producer is raised in the consumer;
+    ``close()`` (also run when the consumer stops early) releases the
+    producer and waits for it.
+    """
+
+    def __init__(self, pipe: GaitPipeline, sampler, seed: int, epoch: int):
+        self.pipe = pipe
+        self.seed, self.epoch = seed, epoch
+        self._q: "queue.Queue" = queue.Queue(maxsize=PREFETCH_DEPTH)
+        self._stop = threading.Event()
+        self._n = len(sampler)
+
+        def producer():
+            # any exception must reach the consumer: a silently dead
+            # producer would leave __iter__ parked in q.get() forever
+            try:
+                for i, idx in enumerate(sampler.epoch()):
+                    if (self._stop.is_set()
+                            or not self._put((i, pipe.gather(idx)))):
+                        return
+            except BaseException as e:   # noqa: BLE001 - raised in __iter__
+                self._put(e)
+                return
+            self._put(None)
+
+        self._t = threading.Thread(target=producer, daemon=True)
+        self._t.start()
+
+    def _put(self, item) -> bool:
+        while not self._stop.is_set():
+            try:
+                self._q.put(item, timeout=0.2)
+                return True
+            except queue.Full:
+                continue  # re-check the stop flag so close() can unblock us
+        return False
+
+    def __iter__(self):
+        try:
+            while True:
+                item = self._q.get()
+                if item is None:
+                    return
+                if isinstance(item, BaseException):
+                    raise item
+                i, raw = item
+                yield self.pipe.preprocess(
+                    raw, batch_generator(self.seed, self.epoch, i))
+        finally:
+            self.close()
+
+    def __len__(self):
+        return self._n
+
+    def close(self) -> None:
+        self._stop.set()
+        try:
+            while True:
+                self._q.get_nowait()
+        except queue.Empty:
+            pass
+        # the producer advances the sampler: wait for it (it stops within
+        # one gather), so the next epoch never shares the sampler with it
+        self._t.join()

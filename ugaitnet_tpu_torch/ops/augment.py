@@ -92,7 +92,7 @@ def random_transform_params(generator: Optional[torch.Generator], batch: int,
         brightness = torch.ones(batch, device=gdev)
         channel_shift = torch.zeros(batch, device=gdev)
     clip_of = uniform() < clip_prob
-    return TransformParams(*(t.to(dev) for t in (
+    return TransformParams(*(t.to(dev, non_blocking=True) for t in (
         apply, tx, ty, zx, zy, flip, brightness, channel_shift, clip_of)))
 
 

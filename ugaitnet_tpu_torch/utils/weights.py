@@ -14,6 +14,13 @@ and maps onto ``UGaitNet``'s state_dict:
   classprob.{weight (N, F), bias (N,)}
 
 Both directions are transposes only, so a round trip is bit-exact.
+
+The optimizer-state bridge carries a JAX training state across mid-run:
+``optax_adam_to_state_dict`` turns optax Adam state, given as numpy
+(``count``, ``mu`` and ``nu`` as flax trees, ``learning_rate``), into a
+``state_dict`` for the port's ``torch.optim.Adam``, and
+``state_dict_to_optax_adam`` goes back.  Parameters are matched by name;
+the optimizer must have been made from ``model.parameters()``.
 """
 
 from __future__ import annotations
@@ -76,3 +83,40 @@ def state_dict_to_flax(state_dict: Mapping[str, torch.Tensor]) -> Dict:
             raise NotImplementedError(f"state_dict key {key!r} has no flax "
                                       "counterpart")
     return {"params": tree}
+
+
+def _param_names(model: torch.nn.Module):
+    return [name for name, _ in model.named_parameters()]
+
+
+def optax_adam_to_state_dict(opt: Mapping, optimizer: torch.optim.Optimizer,
+                             model: torch.nn.Module) -> Dict:
+    """optax Adam state {count, mu, nu, learning_rate} (numpy; mu and nu in
+    the flax layout) -> a ``state_dict`` for ``optimizer`` (a
+    ``torch.optim.Adam`` over ``model.parameters()``), lr rounded to
+    float32 as optax holds it."""
+    mu, nu = flax_to_state_dict(opt["mu"]), flax_to_state_dict(opt["nu"])
+    step = torch.tensor(float(int(np.asarray(opt["count"]))),
+                        dtype=torch.float32)
+    sd = optimizer.state_dict()
+    state = {i: {"step": step.clone(), "exp_avg": mu[name],
+                 "exp_avg_sq": nu[name]}
+             for i, name in enumerate(_param_names(model))}
+    lr = float(np.float32(np.asarray(opt["learning_rate"])))
+    groups = [dict(g, lr=lr) for g in sd["param_groups"]]
+    return {"state": state, "param_groups": groups}
+
+
+def state_dict_to_optax_adam(state_dict: Mapping, model: torch.nn.Module
+                             ) -> Dict:
+    """A ``torch.optim.Adam`` state_dict over ``model.parameters()`` ->
+    {count, mu, nu, learning_rate} as numpy, mu and nu as flax trees (the
+    inverse of ``optax_adam_to_state_dict``)."""
+    names = _param_names(model)
+    st = state_dict["state"]
+    mu = {n: st[i]["exp_avg"] for i, n in enumerate(names)}
+    nu = {n: st[i]["exp_avg_sq"] for i, n in enumerate(names)}
+    return {"count": np.int32(int(st[0]["step"])),
+            "mu": state_dict_to_flax(mu), "nu": state_dict_to_flax(nu),
+            "learning_rate": np.float32(
+                state_dict["param_groups"][0]["lr"])}
