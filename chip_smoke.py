@@ -11,7 +11,8 @@ channels (32, 64, 128), part_dim 256, 62 parts, sign_max merge, 74 classes):
   1. kernels vs plain: the CUDA batch-all triplet forward and backward
      against ``ops/triplet.py`` on the same CUDA tensors, at the flagship
      (62, 120, 256), small, ragged (D not a multiple of the kernels'
-     chunks, B not of 4) and degenerate cases, B = 256 and B = 512, and
+     chunks, B not of 4) and degenerate cases, B = 256 and B = 512, the
+     2D / 3D CNN nets' rank-2 (120, 512) signature with 8 x 15 labels, and
      phase 7's two validation batches (62, 40, 256) with their labels
      (the second wrapped to full size, no P x K pattern); and
      the kernels against themselves, exactly: dist bitwise symmetric with
@@ -69,7 +70,38 @@ channels (32, 64, 128), part_dim 256, 62 parts, sign_max merge, 74 classes):
      camera-pair protocol over phase 5's sets, saved packed, and must
      report all 11 probe cameras.  Prints the steps per epoch, the fit's
      time per step against the isolated step, the blocking part of each
-     async save and the validation time.
+     async save and the validation time;
+  8. int8 and export, over phase 5's sets (reloaded packed): the int8
+     cross term (``torch._int_mm``) against an exact int64 CPU product at
+     P = 128, 1 and 8 x G = 2,200 x D = 15,872; the card's int8 d^2 on the
+     1,100 probes x 1,100 gallery codes against its formula on the CPU from
+     the same int8 codes and scales (exact cross term): within 1e-6 of
+     |p|^2 + |g|^2 with the CPU's norms, bitwise with the card's, and
+     planted faults (|g|^2 from dequantized codes, scales 10 % off or per
+     probe row, the two scales in the other order) that must not be;
+     the int8-gallery service's
+     identify_raw labels against the float32 service's, which must agree
+     wherever the float64 k-th / (k+1)-th neighbor gap is wider than twice
+     the probe's largest measured int8 d^2 error, with every d^2 inside its
+     hard int8 bound, and a planted fault (the gallery's scales applied per
+     probe row) that must break that rule; 128 rows enrolled in place into
+     all three int8 buffers, a label removed, self-queries; identify_codes
+     at bucket 128 on 65,536- and 262,144-row int8 galleries against
+     their bound; quantized=True calibrated on 8 gallery clips: cosine
+     >= 0.99 to the float32 codes on 128 probes, a_conv2's int32 sums card
+     == CPU bitwise, identify_raw per bucket against phase 6; export_encoder
+     of the float32 and the int8 service at buckets (1, 8, 32, 128), a
+     fresh process that loads both artifacts without model code and must
+     reproduce the services' codes, a CPU load of a cuda artifact that must
+     raise, and cli.export_model on phase 7's 'best';
+  9. the train CLI's 2D CNN (--no-gaitset) and 3D CNN (--no-gaitset
+     --use3d) nets at full width: forward card vs CPU within 3e-4 (and not
+     with TF32 on), 3 Adam steps at B = 120 with finite losses and their
+     step times, the last step again with the plain triplet from the same
+     state, batch and dropout masks (losses within 1e-5, the signature
+     gradient against planted faults, as in phase 3), the Keras L2 term
+     card vs CPU within 1e-6 relative, and
+     the int8 encode's cosine to float32 >= 0.99 on 128 clips.
 
 Gradient limits scale with each case, and every run reads planted faults
 (a backward without the g^T term, with the negative role's sign flipped,
@@ -87,6 +119,7 @@ the one forward of phase 4 that shows the card-vs-CPU limit would catch it.
 
 import contextlib
 import copy
+import dataclasses
 import gc
 import importlib.util
 import io
@@ -105,6 +138,7 @@ import torch
 # float32 rate outside the tensor cores, which these kernels use.
 PEAK_BYTES = 3.35e12
 PEAK_FP32 = 67e12
+PEAK_INT8 = 1979e12             # dense int8 tensor-core ops/s
 
 VAL_RTOL = 1e-5                  # loss values: float32 sums in another order
 # gradients, per case: max |kernel - plain| <= GRAD_REL * max |plain|.  The
@@ -157,6 +191,37 @@ from ugaitnet_tpu_torch.cli.train import main
 main(sys.argv[2:])
 """
 REPO = os.path.dirname(os.path.abspath(__file__))
+# int8 encode vs float32 codes: per-row cosine (the JAX package's limit,
+# tests/test_quantize.py)
+COS_MIN = 0.99
+# int8 d^2 on the card vs its formula on the CPU from the same codes and
+# scales: max |card - CPU| <= INT8_D2_REL (|p|^2 + |g|^2); the norms are
+# float32 sums in another order, and d^2 is rounded on their scale
+INT8_D2_REL = 1e-6
+# an exported program's codes vs its service's encode_raw on the same feed:
+# max |artifact - service| <= EXPORT_REL * max |service| (the same aten ops
+# on the same weights; padding rows differ, which no code depends on).  The
+# sign_max merge turns any rounding difference (TF32 left on, say) into an
+# O(1) one wherever two branches' values nearly cancel, so this limit holds
+# only for the same arithmetic: bitwise in practice.
+EXPORT_REL = 1e-6
+# a fresh process that loads exported artifacts without model code, encodes
+# a saved feed with each (TF32 off, as this process runs the services) and
+# prints the port modules it imported
+EXPORT_BOOT = """
+import json, os, sys
+import numpy as np
+import torch
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+sys.path.insert(0, sys.argv[1])
+from ugaitnet_tpu_torch.eval.export import ExportedEncoder
+raw = dict(np.load(sys.argv[2]))
+for path in sys.argv[3:]:
+    np.save(os.path.join(path, "codes.npy"), ExportedEncoder(path).encode(raw))
+print(json.dumps(sorted(m for m in sys.modules
+                        if m.startswith("ugaitnet_tpu_torch"))))
+"""
 
 SRC = "ugaitnet_tpu_torch/csrc/triplet_kernel.cu"
 FWD_KERNELS = ("triplet_fwd_kernel",)
@@ -224,9 +289,13 @@ def n_valid_triplets(labels, parts):
     return parts * int(np.sum(counts * counts * (b - counts)))
 
 
-def bound(nbytes, nops):
-    t_bytes, t_ops = nbytes / PEAK_BYTES, nops / PEAK_FP32
+def bound(nbytes, nops, peak_ops=PEAK_FP32):
+    t_bytes, t_ops = nbytes / PEAK_BYTES, nops / peak_ops
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def bound_int8(nbytes, nops):
+    return bound(nbytes, nops, PEAK_INT8)
 
 
 def rel_err(got, want):
@@ -338,6 +407,61 @@ def value_over_dist(dist, lab, margin):
     s, n = t.sum((1, 2, 3)), (t > 0.0).to(torch.float32).sum((1, 2, 3))
     return float(torch.where(n > 0.0, s / n.clamp_min(1.0),
                              torch.zeros_like(s)).mean())
+
+
+def capture(net, store):
+    """Keep the signature of net's next forward and its gradient."""
+    def hook(_mod, _inp, out):
+        store["sig"] = out["signature"].detach()
+        out["signature"].register_hook(
+            lambda g: store.__setitem__("grad", g.detach().clone()))
+    return net.register_forward_hook(hook)
+
+
+def kernel_vs_plain_step(name, mcfg, tcfg, before, batch, kstore,
+                         kernel_losses):
+    """One step with the plain triplet from the state a kernel step started
+    from (``before``: model and optimizer state dicts, step count), on the
+    same batch: the losses within STEP_RTOL of the kernel step's, and
+    d loss / d signature (held in ``kstore`` by ``capture``) against the
+    plain step's, with planted faults read against GRAD_REL.  The gradient
+    holds the CE term too, so a fault reads as (its triplet gradient - the
+    plain one) against the whole plain gradient.  Returns (the kernel's
+    error, the faults' readings)."""
+    from ugaitnet_tpu_torch.models.network import UGaitNet
+    from ugaitnet_tpu_torch.ops.triplet import batch_all_triplet_loss
+    from ugaitnet_tpu_torch.train.train_step import (init_state,
+                                                     make_train_step)
+    net = UGaitNet(mcfg, seed=0)
+    net.load_state_dict(before[0])
+    state = init_state(net, tcfg)
+    state.optimizer.load_state_dict(before[1])
+    state.step = before[2]                  # the dropout masks' key
+    pstore = {}
+    hook = capture(net, pstore)
+    plain_tcfg = dataclasses.replace(tcfg, triplet_kind="batch_all_xla")
+    _, plain_metrics = make_train_step(mcfg, plain_tcfg)(state, batch)
+    hook.remove()
+    for k in ("loss", "triplet"):
+        kv, pv = kernel_losses[k], float(plain_metrics[k])
+        print(f"{name} step {k}: kernel {kv:.7f} plain {pv:.7f} "
+              f"(rel {abs(kv - pv) / abs(pv):.2e}, tol {STEP_RTOL})")
+        check(abs(kv - pv) <= STEP_RTOL * abs(pv), f"{name} step {k}")
+    g_total, sig = pstore["grad"], pstore["sig"]
+    w_tri = tcfg.loss_weights[0]
+    s_ = sig.clone().requires_grad_(True)
+    g_tri = w_tri * torch.autograd.grad(
+        batch_all_triplet_loss(s_, batch.labels, tcfg.margin), s_)[0]
+    sig_err = rel_err(kstore["grad"], g_total)
+    sig_faults = {f or "none": rel_err(
+        g_total - g_tri + w_tri * analytic_grad(sig, batch.labels, f,
+                                                tcfg.margin),
+        g_total) for f in (None,) + FAULTS}
+    print(f"{name} step d loss / d signature {tuple(sig.shape)}, kernel "
+          f"step vs plain step: max |grad| {float(g_total.abs().max()):.2e},"
+          f" of which the triplet term {float(g_tri.abs().max()):.2e}")
+    check_faults(f"{name} signature gradient", sig_err, sig_faults)
+    return sig_err, sig_faults
 
 
 def median_ms(fn, n=5):
@@ -665,8 +789,10 @@ def epoch_losses(experdir, key="train/loss"):
             if key in r}
 
 
-def trainer_phase(card, gallery_dir, probe_dir, isolated_step_ms, train_ms):
-    """7. The trainer at the flagship's width through the CLIs."""
+def trainer_phase(card, work, gallery_dir, probe_dir, isolated_step_ms,
+                  train_ms):
+    """7. The trainer at the flagship's width through the CLIs, in the
+    directory ``work`` (which the caller removes)."""
     from ugaitnet_tpu_torch.cli import evaluate as cli_eval
     from ugaitnet_tpu_torch.cli import train as cli_train
     from ugaitnet_tpu_torch.core import checkpoint as ckpt
@@ -683,8 +809,8 @@ def trainer_phase(card, gallery_dir, probe_dir, isolated_step_ms, train_ms):
     from ugaitnet_tpu_torch.train.train_step import init_state
     from ugaitnet_tpu_torch.utils import net_utils
     out = {}
-    work = tempfile.mkdtemp(prefix="chip_smoke_train_")
     proc = None
+    os.makedirs(work, exist_ok=True)
     try:
         t0 = time.perf_counter()
         ds = make_synthetic_dataset(num_subjects=74, videos_per_subject=4,
@@ -1000,6 +1126,7 @@ def trainer_phase(card, gallery_dir, probe_dir, isolated_step_ms, train_ms):
         out["evaluate"] = {"probe_cameras": len(cams), "seconds": eval_s,
                            "mean_rank1_subseq": mean_sub,
                            "mean_rank1_video": mean_vid}
+        out["experdir"] = exp_a
         print(f"cli.evaluate on run A's best ({FIT_EPOCHS} epochs of the "
               f"flagship on synthetic data): {len(cams)} probe cameras, mean "
               f"Rank-1 subseq {mean_sub:.4f}, video {mean_vid:.4f}, "
@@ -1009,8 +1136,540 @@ def trainer_phase(card, gallery_dir, probe_dir, isolated_step_ms, train_ms):
         if proc is not None and proc.poll() is None:
             proc.kill()
             proc.wait(timeout=60)
-        shutil.rmtree(work, ignore_errors=True)
     return out
+
+
+def calib_volumes(ds, n=8):
+    """The preprocessed float volumes of a set's first n clips (expand 1,
+    no augmentation): the int8 encode's calibration batch."""
+    from ugaitnet_tpu_torch.core.config import DataConfig
+    from ugaitnet_tpu_torch.data.pipeline import preprocess_batch
+    raw = {f"raw_{m}": np.ascontiguousarray(ds.modalities[m].volumes[:n])
+           for m in MODS}
+    raw.update({f"present_{m}": np.ones(n, np.float32) for m in MODS})
+    raw["labels"] = np.zeros(n, np.int32)
+    vols, _, _ = preprocess_batch(raw, MODS, (2, 1), (100.0, 1.0), 2, 1,
+                                  False, DataConfig())
+    return vols
+
+
+def int8_error_bound(p, g, q_scale, p_scale):
+    """Per pair, the most the int8 cross term can move d^2 (float64): with
+    |x - q s| <= s / 2 per entry, |p.g - p^.g^| <= s_g |p|_1 / 2 + s_p
+    (|g|_1 + D s_g / 2) / 2; d^2 moves by twice that, plus 1e-5 (|p|^2 +
+    |g|^2) for the float32 norms and the int32 -> float32 conversion."""
+    d = p.shape[1]
+    p1, g1 = p.abs().sum(1), g.abs().sum(1)
+    e = (0.5 * q_scale[None, :] * p1[:, None]
+         + 0.5 * p_scale[:, None] * (g1[None, :] + 0.5 * d * q_scale[None, :]))
+    return 2.0 * e + 1e-5 * ((p * p).sum(1)[:, None] + (g * g).sum(1)[None, :])
+
+
+def int8_formula_checks(d2_card, codes, g, qp, ps, qg, gscale, g2, card):
+    """The card's ``pairwise_l2_int8`` (P, G) against its formula on the
+    CPU from the same int8 codes and scales: the cross term exact (float64
+    sums of integer products stay below 2^53), rounded to float32, times
+    the probe scales, then times the gallery scales, subtracted twice from
+    |p|^2 + |g|^2.  With the norms summed on the CPU from the float codes,
+    max |card - CPU| must stay within INT8_D2_REL (|p|^2 + |g|^2); with the
+    card's own norms the two must agree bitwise.  Planted faults read
+    against the same limit: |g|^2 from the dequantized codes, the gallery
+    scales 10 % off, the scales per probe row; and, against bitwise, the
+    two scales applied in the other order."""
+    qp_c, ps_c = qp.cpu(), ps.cpu()
+    qg_c, gs_c = qg.cpu(), gscale.cpu()
+    codes_c, g_c = codes.cpu(), g.cpu()
+    dot = (qp_c.double() @ qg_c.double().T).float()
+    got = d2_card.cpu()
+
+    def d2(p2, g2_, cross):
+        return torch.clamp_min(p2[:, None] + g2_[None, :] - 2.0 * cross, 0.0)
+
+    def rescale(ps_, gs_):
+        return dot * ps_[:, None] * gs_[None, :]
+
+    p2_c, g2_c = (codes_c * codes_c).sum(1), (g_c * g_c).sum(1)
+    norm = p2_c[:, None] + g2_c[None, :]
+
+    def over(want):
+        return float(((got - want).abs() / norm).max())
+
+    rel = over(d2(p2_c, g2_c, rescale(ps_c, gs_c)))
+    own = d2((codes * codes).sum(1).cpu(), g2.cpu(), rescale(ps_c, gs_c))
+    differ = int((got != own).sum())
+    g2_deq = ((qg_c.float() * gs_c[:, None]) ** 2).sum(1)
+    faults = {
+        "|g|^2 from dequantized codes": over(d2(p2_c, g2_deq,
+                                                rescale(ps_c, gs_c))),
+        "gallery scales x 1.1": over(d2(p2_c, g2_c,
+                                        rescale(ps_c, 1.1 * gs_c))),
+        # (the gallery has at least as many rows as there are probes)
+        "scales per probe row": over(d2(p2_c, g2_c, dot * ps_c[:, None]
+                                        * gs_c[:len(ps_c), None]))}
+    order = d2((codes * codes).sum(1).cpu(), g2.cpu(),
+               dot * gs_c[None, :] * ps_c[:, None])
+    order_differ = int((got != order).sum())
+    print(f"int8 d^2 on the card vs its formula on the CPU ({tuple(got.shape)}"
+          f", exact cross term): max |card - CPU| / (|p|^2 + |g|^2) "
+          f"{rel:.2e} <= {INT8_D2_REL}; with the card's norms {differ} pairs"
+          f" differ (bitwise required); planted faults "
+          + ", ".join(f"{k} {v:.2e}" for k, v in faults.items())
+          + f" > {INT8_D2_REL}; gallery scale before probe scale: "
+          f"{order_differ} pairs not bitwise [{card}]")
+    check(rel <= INT8_D2_REL, "int8 d^2 vs its CPU formula")
+    check(differ == 0, f"int8 d^2 vs its CPU formula with the card's norms: "
+          f"{differ} pairs not bitwise")
+    check(all(v > INT8_D2_REL for v in faults.values()) and order_differ,
+          "a planted int8 fault reads under the formula limit")
+    return {"max_rel_err": rel, "pairs_not_bitwise": differ,
+            "faults": faults, "swapped_order_pairs_not_bitwise":
+            order_differ}
+
+
+def labels_outside_near_ties(d2, labels, pred, k, eps):
+    """Probes whose k-th and (k+1)-th float64 d^2 differ by more than 2 eps
+    (eps: (P,) per probe, the int8 path's largest |d^2 error| over the
+    gallery), a decision int8 resolution cannot move; and how many of
+    those have pred != the float64 vote."""
+    order = torch.argsort(d2, dim=1, stable=True).cpu().numpy()
+    d2n = d2.cpu().numpy()
+    want = []
+    for r in order[:, :k]:
+        labs, counts = np.unique(labels[r], return_counts=True)
+        want.append(labs[np.argmax(counts)])
+    want = np.asarray(want)
+    kth = np.take_along_axis(d2n, order[:, k - 1:k + 1], 1)
+    firm = kth[:, 1] - kth[:, 0] > 2.0 * eps
+    return firm, int(((pred != want) & firm).sum())
+
+
+def int8_phase(card, sets, gallery_dir, probe_dir, experdir, serve_res,
+               bigs=(65536, 262144)):
+    """8. The int8 gallery, the int8 encode and export at the flagship's
+    width over phase 5's sets."""
+    from ugaitnet_tpu_torch.cli import export_model
+    from ugaitnet_tpu_torch.data.schema import GaitDataset
+    from ugaitnet_tpu_torch.eval.export import ExportedEncoder, export_encoder
+    from ugaitnet_tpu_torch.eval.serving import SignatureService
+    from ugaitnet_tpu_torch.models.network import UGaitNet
+    from ugaitnet_tpu_torch.ops.knn import (int8_mm, pairwise_l2_int8,
+                                            quantize_rows)
+    from ugaitnet_tpu_torch.core.config import BranchConfig, ModelConfig
+    dev = torch.device("cuda")
+    out = {}
+    gallery_ds, probe_ds = GaitDataset.load(gallery_dir), \
+        GaitDataset.load(probe_dir)
+    vols = {m: probe_ds.modalities[m].volumes for m in MODS}
+
+    def raw(idx):
+        return {f"raw_{m}": np.ascontiguousarray(vols[m][idx]) for m in MODS}
+
+    # -- the int32 cross term against an exact int64 product on the CPU
+    rng = np.random.RandomState(8)
+    gq = rng.randint(-127, 128, (2200, 15872)).astype(np.int8)
+    g_cpu = torch.from_numpy(gq).long()
+    g_dev = torch.from_numpy(gq).to(dev)
+    for p in (128, 1, 8):
+        pq = rng.randint(-127, 128, (p, 15872)).astype(np.int8)
+        got = int8_mm(torch.from_numpy(pq).to(dev), g_dev).cpu()
+        want = torch.from_numpy(pq).long() @ g_cpu.T
+        check(got.dtype == torch.int32 and torch.equal(got.long(), want),
+              f"int8 cross term P={p} differs from the int64 product")
+    print("int8 cross term (cuBLASLt int8 GEMM, gallery rows as B = G^T) at "
+          "P = 128, 1, 8 x G = 2,200 x D = 15,872: equal to the int64 CPU "
+          f"product [{card}]")
+    del g_cpu, g_dev
+
+    def flagship():
+        return ModelConfig(
+            branches=(BranchConfig(kind="gaitset", modality="of"),
+                      BranchConfig(kind="gaitset", modality="gray")),
+            merge="sign_max", nclasses=74)
+
+    model = UGaitNet(flagship(), seed=0)
+    fp32 = SignatureService(model, MODS, knn=3, buckets=BUCKETS)
+    fp32.build_gallery(gallery_ds, batch_size=128)
+    svc = SignatureService(model, MODS, knn=3, buckets=BUCKETS,
+                           gallery_dtype="int8")
+    svc.set_gallery(fp32._host_codes, fp32._host_labels)
+    n = len(probe_ds)
+    lab_f, _ = fp32.identify_raw(raw(np.arange(n)))
+    lab_q, dist_q = svc.identify_raw(raw(np.arange(n)))
+    check(bool(np.isfinite(dist_q).all()), "int8 identify distances")
+
+    # the rule: labels equal the fp32 service's wherever the float64
+    # decision (k-th vs (k+1)-th neighbor) is wider than twice the int8
+    # path's measured d^2 error; every d^2 within its hard bound
+    codes = torch.from_numpy(fp32.encode_raw(raw(np.arange(n)))).to(dev)
+    g = torch.from_numpy(fp32._host_codes).to(dev)
+    rows = len(g)
+    d2_64 = torch.clamp_min(
+        (codes.double() ** 2).sum(1)[:, None]
+        + (g.double() ** 2).sum(1)[None, :]
+        - 2.0 * codes.double() @ g.double().T, 0.0)
+    qg, sg, g2 = svc._gallery_codes, svc._gallery_scale, svc._gallery_sq
+    d2_q32 = pairwise_l2_int8(codes, qg, sg, g2)[:, :rows]
+    d2_q = d2_q32.double()
+    qp, ps = quantize_rows(codes, xla_scale=True)
+    formula = int8_formula_checks(d2_q32, codes, g, qp, ps, qg[:rows],
+                                  sg[:rows], g2[:rows], card)
+    out["int8_formula"] = formula
+    lim = int8_error_bound(codes.double(), g.double(), sg[:rows].double(),
+                           ps.double())
+    err = (d2_q - d2_64).abs()
+    eps_p = err.amax(dim=1).cpu().numpy()        # per probe
+    eps = float(eps_p.max())
+    check(bool((err <= lim).all()), "int8 d^2 outside its hard bound")
+    ulabs = np.unique(fp32._host_labels)
+    firm, bad = labels_outside_near_ties(d2_64, fp32._host_labels, lab_q, 3,
+                                         eps_p)
+    fbad = int(((lab_f != lab_q) & firm).sum())
+    check(bad == 0 and fbad == 0,
+          f"int8 labels differ outside near ties: {bad} vs float64, {fbad} "
+          "vs the fp32 service")
+
+    # planted fault: the gallery's per-row scales applied along the probe
+    # axis of the cross term (per row of d^2) instead of per gallery row
+    dot = int8_mm(qp, qg).float() * ps[:, None] * sg[:n, None]
+    d2_f = torch.clamp_min((codes * codes).sum(1)[:, None] + g2[None, :]
+                           - 2.0 * dot, 0.0)[:, :rows].double()
+    ferr = (d2_f - d2_64).abs()
+    fault_over = int((ferr > lim).sum())
+    top = torch.topk(d2_f, 3, largest=False).indices.cpu().numpy()
+    fault_pred = np.asarray([ulabs[np.argmax(np.bincount(
+        np.searchsorted(ulabs, fp32._host_labels[r]),
+        minlength=len(ulabs)))] for r in top])
+    _, fault_bad = labels_outside_near_ties(d2_64, fp32._host_labels,
+                                            fault_pred, 3, eps_p)
+    out["identify_rule"] = {
+        "probes": n, "max_abs_d2_err": eps,
+        "max_err_over_bound": float((err / lim).max()),
+        "near_ties": int((~firm).sum()),
+        "labels_differ_from_fp32": int((lab_f != lab_q).sum()),
+        "fault_pairs_over_bound": fault_over,
+        "fault_max_abs_d2_err": float(ferr.max()),
+        "fault_labels_off_outside_near_ties": fault_bad}
+    print(f"int8 gallery identify_raw ({n} probes vs {rows} rows, k = 3): "
+          f"labels differ from fp32 on {int((lab_f != lab_q).sum())}, all "
+          f"within near ties ({int((~firm).sum())} probes whose k-th and "
+          f"(k+1)-th float64 d^2 lie within twice the probe's measured max "
+          f"|d^2 int8 - d^2 float64|, at most {eps:.3e}, median "
+          f"{float(np.median(eps_p)):.3e}); every pair within its hard bound "
+          f"(max error / bound {float((err / lim).max()):.3f}); planted "
+          f"fault (scales per probe row): {fault_over} pairs over the bound, "
+          f"max |d^2 err| {float(ferr.max()):.3e}, {fault_bad} labels off "
+          f"outside near ties [{card}]")
+    check(fault_over > 0 or fault_bad > 0,
+          "the planted scale fault passes the int8 rule")
+    del d2_64, d2_q, d2_f, err, ferr, lim, g
+
+    # -- enroll in place (all three buffers), remove, self-queries
+    new = codes[:64].cpu().numpy()
+    new_labels = probe_ds.labels[:64]
+    bufs = (svc._gallery_codes, svc._gallery_scale, svc._gallery_sq)
+    ptrs, cap, used = [b.data_ptr() for b in bufs], svc._capacity, \
+        svc._rows_used
+    svc.enroll(np.concatenate([new, new]), np.concatenate([new_labels,
+                                                           new_labels]))
+    now = (svc._gallery_codes, svc._gallery_scale, svc._gallery_sq)
+    check([b.data_ptr() for b in now] == ptrs and svc._capacity == cap,
+          "int8 enroll did not write in place")
+    qn, sn = quantize_rows(torch.from_numpy(np.concatenate([new, new]))
+                           .to(dev))
+    check(torch.equal(svc._gallery_codes[used:used + 128], qn)
+          and torch.equal(svc._gallery_scale[used:used + 128], sn),
+          "enrolled int8 rows on the card")
+    check(np.array_equal(svc.identify_codes(new)[0], new_labels),
+          "int8 self-queries after enroll")
+    gone = int(new_labels[0])
+    removed = svc.remove(gone)
+    keep = new_labels != gone
+    got = svc.identify_codes(new)[0]
+    check(np.array_equal(got[keep], new_labels[keep]) and gone not in got,
+          "int8 self-queries after remove")
+    out["enroll_remove"] = {"enrolled": 128, "removed_rows": removed,
+                            "capacity": int(svc._capacity)}
+    print(f"int8 enroll 128 rows in place (codes, scales and |g|^2 keep "
+          f"their storage; capacity {svc._capacity}), remove label {gone} "
+          f"({removed} rows): {int(keep.sum())} self-queries keep their "
+          f"labels, none returns {gone} [{card}]")
+    del svc
+
+    # -- identify_codes on large int8 galleries
+    d = codes.shape[1]
+    big = np.empty((max(bigs), d), np.float32)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    for s0 in range(0, len(big), 32768):
+        x = torch.randn(min(32768, len(big) - s0), d, device=dev,
+                        generator=gen)
+        x /= torch.linalg.vector_norm(x, dim=1, keepdim=True)
+        big[s0:s0 + len(x)] = x.cpu().numpy()
+    del x
+    queries = big[:128] + 1e-4 * np.random.RandomState(0).randn(
+        128, d).astype(np.float32)
+    qdev = torch.from_numpy(queries).to(dev)
+    out["big_gallery"] = {}
+    for gsize in bigs:
+        svc = SignatureService(model, MODS, knn=3, buckets=BUCKETS,
+                               gallery_dtype="int8")
+        t0 = time.perf_counter()
+        svc.set_gallery(big[:gsize], np.arange(gsize) % 1000)
+        torch.cuda.synchronize()
+        set_s = time.perf_counter() - t0
+        _, qd = svc.identify_codes(queries)
+        check(bool((qd[:, 0] < 0.05).all() and (qd[:, 1] > 1.0).all()),
+              f"int8 gallery G={gsize}: each query's nearest row is its own")
+        call_ms = median_ms(lambda: svc.identify_codes(queries))
+        with torch.no_grad():
+            dev_ms = cuda_ms(lambda: svc._dist_vote(qdev, 3), 10)
+        nbytes = gsize * d + 20 * gsize + 4 * 128 * d
+        b_ms, b_by = bound_int8(nbytes, 2 * 128 * gsize * d)
+        out["big_gallery"][gsize] = {
+            "G": gsize, "D": d, "gallery_gb": gsize * d / 1e9,
+            "set_gallery_s": set_s, "identify_codes_ms": call_ms,
+            "device_ms": dev_ms, "bound_ms": b_ms, "bound_by": b_by}
+        print(f"int8 identify_codes bucket 128 vs G={gsize} D={d} "
+              f"({gsize * d / 1e9:.2f} GB int8): call {call_ms:.2f} ms "
+              f"(median of 5), device (int8 cross term + rescale + top-k + "
+              f"vote, CUDA events) {dev_ms:.3f} ms, bound {b_ms:.3f} ms "
+              f"({b_by}); set_gallery {set_s:.1f} s [{card}]")
+        del svc
+        gc.collect()
+        torch.cuda.empty_cache()
+    f32 = serve_res["big_gallery"]
+    print(f"  float32 at G={f32['G']} (phase 6): device {f32['device_ms']:.3f}"
+          f" ms, bound {f32['bound_ms']:.3f} ms [{card}]")
+    del big
+
+    # -- quantized=True: the int8 encode, calibrated on 8 gallery clips
+    svcq = SignatureService(model, MODS, knn=3, buckets=BUCKETS,
+                            quantized=True,
+                            calib_volumes=calib_volumes(gallery_ds))
+    probes = raw(np.arange(128))
+    q_codes = svcq.encode_raw(probes)
+    f_codes = fp32.encode_raw(probes)
+    cos = (q_codes * f_codes).sum(1) / (np.linalg.norm(q_codes, axis=1)
+                                        * np.linalg.norm(f_codes, axis=1))
+    out["int8_encode_cosine_min"] = float(cos.min())
+    print(f"int8 encode (quantized=True) vs fp32 codes, 128 probes: cosine "
+          f"min {cos.min():.5f}, mean {cos.mean():.5f} (limit {COS_MIN}) "
+          f"[{card}]")
+    check(cos.min() >= COS_MIN, "int8 encode cosine")
+    conv = svcq._qnet.branches["branch_of"].a_conv2
+    a1 = torch.from_numpy(np.random.RandomState(9).randint(
+        -127, 128, (50, 64, 64, conv.cin)).astype(np.int8))
+    acc_card = conv(a1.to(dev), lambda y: y).cpu()
+    acc_cpu = copy.deepcopy(conv).cpu()(a1, lambda y: y)
+    check(torch.equal(acc_card, acc_cpu),
+          "a_conv2's int32 accumulators differ between card and CPU")
+    print(f"branch_of.a_conv2 int32 accumulators ({tuple(acc_cpu.shape)}): "
+          f"card == CPU, bitwise [{card}]")
+    svcq.set_gallery(fp32._host_codes, fp32._host_labels)
+    svcq.warmup()
+    feeds = {b: raw(np.arange(b)) for b in BUCKETS}
+    times = {b: median_ms(lambda b=b: svcq.identify_raw(feeds[b]))
+             for b in BUCKETS}
+    out["identify_raw_ms_int8_encode"] = times
+    ref = serve_res["identify_raw_ms"]
+    print("identify_raw ms by bucket (median of 5), int8 encode / fp32 / "
+          "bf16 (phase 6): " + ", ".join(
+              f"{b}: {times[b]:.2f} / {ref['float32'][b]:.2f} / "
+              f"{ref['bfloat16'][b]:.2f}" for b in BUCKETS) + f" [{card}]")
+
+    # -- export both services; a fresh process loads and encodes
+    art = {}
+    for name, s_ in (("fp32", fp32), ("int8", svcq)):
+        art[name] = os.path.join(sets, f"artifact_{name}")
+        t0 = time.perf_counter()
+        sizes = export_encoder(s_, art[name], buckets=BUCKETS)
+        out[f"export_{name}_s"] = time.perf_counter() - t0
+        out[f"export_{name}_mb"] = {b: v / 1e6 for b, v in sizes.items()}
+    print(f"export_encoder buckets {BUCKETS}: fp32 "
+          f"{out['export_fp32_s']:.1f} s ({out['export_fp32_mb']} MB), int8"
+          f" {out['export_int8_s']:.1f} s ({out['export_int8_mb']} MB) "
+          f"[{card}]")
+    feed = os.path.join(sets, "probes128.npz")
+    np.savez(feed, **probes)
+    res = subprocess.run([sys.executable, "-c", EXPORT_BOOT, REPO, feed]
+                         + [art["fp32"], art["int8"]], capture_output=True,
+                         text=True, timeout=600)
+    check(res.returncode == 0, f"export subprocess:\n{res.stderr[-3000:]}")
+    mods = json.loads(res.stdout.strip().splitlines()[-1])
+    check("ugaitnet_tpu_torch.eval.export" in mods and not any(
+        m.startswith(("ugaitnet_tpu_torch.models", "ugaitnet_tpu_torch.ops"))
+        for m in mods), f"the loading process imported {mods}")
+    for name, want in (("fp32", f_codes), ("int8", q_codes)):
+        got = np.load(os.path.join(art[name], "codes.npy"))
+        e = float(np.abs(got - want).max() / np.abs(want).max())
+        out[f"export_{name}_rel_err"] = e
+        print(f"artifact {name} in a fresh process ({len(mods)} port modules"
+              f", no models / ops): 128 probes, max |artifact - service| / "
+              f"max |service| {e:.2e} (limit {EXPORT_REL}; bitwise "
+              f"{bool(np.array_equal(got, want))}) [{card}]")
+        check(got.shape == want.shape and e <= EXPORT_REL,
+              f"artifact {name} vs its service")
+    try:
+        ExportedEncoder(art["fp32"], device="cpu")
+    except RuntimeError as e:
+        check("cli/export_model.py" in str(e), f"platform guard: {e}")
+    else:
+        check(False, "a device='cpu' load of the cuda artifact did not raise")
+
+    # -- the export CLI on phase 7's best
+    cli_out = os.path.join(sets, "artifact_cli")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        export_model.main(["--experdir", experdir, "--epoch", "best",
+                           "--out", cli_out, "--buckets", "1", "8"])
+    enc = ExportedEncoder(cli_out)
+    codes5 = enc.encode(raw(np.arange(5)))
+    check(codes5.shape == (5, 62 * 256) and np.isfinite(codes5).all(),
+          "the export CLI's artifact")
+    print(f"cli.export_model on phase 7's best -> buckets {enc.buckets}, "
+          f"5 probes encode to {codes5.shape}, finite [{card}]")
+    return out
+
+
+BRANCH_STEPS = 3
+
+
+def branch_phase(card):
+    """9. The train CLI's --no-gaitset (2D CNN) and --no-gaitset --use3d
+    (3D CNN) nets at full width: forward card vs CPU, Adam steps, the last
+    of them against a step with the plain triplet, the Keras L2 term card
+    vs CPU, int8 encode."""
+    from ugaitnet_tpu_torch.cli import train as cli_train
+    from ugaitnet_tpu_torch.core.config import DataConfig
+    from ugaitnet_tpu_torch.data.pipeline import preprocess_batch
+    from ugaitnet_tpu_torch.models.network import UGaitNet
+    from ugaitnet_tpu_torch.ops.quantize import (encode_int8,
+                                                 quantize_model_params)
+    from ugaitnet_tpu_torch.train.train_step import (Batch, init_state,
+                                                     l2_regularization,
+                                                     make_train_step)
+    dev = torch.device("cuda")
+    dcfg = DataConfig()
+    mods = (MODS, (2, 1), (100.0, 1.0), 2)
+    out = {}
+
+    def raw_batch(b, ids, seed):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        return {"raw_of": torch.randint(-3000, 3000, (b, 50, 60, 60),
+                                        device=dev, generator=g,
+                                        dtype=torch.int16),
+                "raw_gray": torch.randint(0, 255, (b, 25, 60, 60),
+                                          device=dev, generator=g,
+                                          dtype=torch.uint8),
+                "present_of": torch.ones(b, device=dev),
+                "present_gray": torch.ones(b, device=dev),
+                "labels": torch.as_tensor(np.repeat(np.arange(ids), b // ids),
+                                          dtype=torch.int32, device=dev)}
+
+    for name, flags in (("conv2d", ["--no-gaitset"]),
+                        ("conv3d", ["--no-gaitset", "--use3d"])):
+        args = cli_train.build_parser().parse_args(
+            ["--mod0", "of", "--mod1", "gray", "--nclasses", "74"] + flags)
+        mcfg, _, tcfg = cli_train.configs_from_args(args)
+        model = UGaitNet(mcfg, seed=0)
+        cpu = UGaitNet(mcfg, device="cpu", seed=1)
+        cpu.load_state_dict({k: v.cpu() for k, v in
+                             model.state_dict().items()})
+        res = {"parameters": sum(p.numel() for p in model.parameters())}
+
+        # forward, card vs CPU (TF32 off; on, it must fail the limit)
+        small, flg, _ = preprocess_batch(raw_batch(4, 2, seed=11), *mods, 1,
+                                         False, dcfg)
+        with torch.inference_mode():
+            on_cpu = cpu([v.cpu() for v in small], [f.cpu() for f in flg],
+                         train=False)
+
+        def card_vs_cpu(tf32):
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+            torch.backends.cudnn.allow_tf32 = tf32
+            with torch.inference_mode():
+                o = model(small, flg, train=False)
+            return {k: rel_err(o[k].cpu(), on_cpu[k])
+                    for k in ("signature", "classprob_logits")}
+        err, tf32_err = card_vs_cpu(False), card_vs_cpu(True)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        res["card_vs_cpu"], res["card_vs_cpu_tf32"] = err, tf32_err
+        for k in err:
+            print(f"{name} forward {k}: card vs CPU {err[k]:.2e} <= "
+                  f"{CPU_REL}; with TF32 on {tf32_err[k]:.2e} > {CPU_REL} "
+                  f"[{card}]")
+            check(err[k] <= CPU_REL, f"{name} card vs CPU {k}")
+            check(tf32_err[k] > CPU_REL,
+                  f"{name} card vs CPU {k}: TF32 passes the limit")
+
+        # Adam steps on B = 120 (40 raw x expand 3, augmentation on)
+        state = init_state(model, tcfg)
+        step = make_train_step(mcfg, tcfg)
+        raw = raw_batch(40, 8, seed=12)
+        gen = torch.Generator().manual_seed(0)
+        step_ms, losses, kstore = [], [], {}
+        for i in range(BRANCH_STEPS):
+            r = dict(raw)
+            r["raw_of"] = raw["raw_of"] ^ i
+            r["raw_gray"] = raw["raw_gray"] ^ i
+            if i == BRANCH_STEPS - 1:   # the state the plain step starts from
+                before = (copy.deepcopy(state.model.state_dict()),
+                          copy.deepcopy(state.optimizer.state_dict()),
+                          state.step)
+                hook = capture(state.model, kstore)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            v, f, lab = preprocess_batch(r, *mods, 3, True, dcfg,
+                                         generator=gen)
+            batch = Batch(tuple(v), tuple(f), lab)
+            _, m = step(state, batch)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append({k: float(x) for k, x in m.items()})
+        hook.remove()
+        check(tuple(v[0].shape)[0] == 120, "B = 120")
+        check(all(np.isfinite(x) for m in losses for x in m.values()),
+              f"{name} losses {losses}")
+        # the last step again with the plain triplet: same state, same
+        # augmented batch, same dropout masks
+        res["sig_grad_rel_err"] = kernel_vs_plain_step(
+            name, mcfg, tcfg, before, batch, kstore, losses[-1])
+        del before
+        cpu.load_state_dict({k: x.cpu() for k, x in
+                             model.state_dict().items()})
+        with torch.no_grad():
+            reg_card = float(l2_regularization(model, mcfg))
+            reg_cpu = float(l2_regularization(cpu, mcfg))
+        reg_rel = abs(reg_card - reg_cpu) / reg_cpu
+        res.update(losses=losses, step_ms=step_ms, reg=reg_card,
+                   reg_rel=reg_rel)
+        print(f"{name}: {BRANCH_STEPS} Adam steps B=120, losses "
+              f"{[round(m['loss'], 6) for m in losses]}, reg card "
+              f"{reg_card:.7g} vs CPU {reg_cpu:.7g} (rel {reg_rel:.1e}, "
+              f"limit 1e-6), step ms {[round(t, 2) for t in step_ms]} "
+              f"(first includes cuDNN warm-up) [{card}]")
+        check(reg_rel <= 1e-6, f"{name} reg card vs CPU")
+
+        # int8 encode against the float net (per-sample L2)
+        model.eval()
+        calib, _, _ = preprocess_batch(raw_batch(8, 2, seed=13), *mods, 1,
+                                       False, dcfg)
+        qnet = quantize_model_params(model, mcfg, calib)
+        probe, pf, _ = preprocess_batch(raw_batch(128, 8, seed=14), *mods, 1,
+                                        False, dcfg)
+        with torch.no_grad():
+            q = encode_int8(qnet, probe, pf, mcfg)
+            fl = model(probe, pf, train=False)["flatten"]
+        cos = (q * fl).sum(1) / (q.norm(dim=1) * fl.norm(dim=1))
+        res["int8_cosine_min"] = float(cos.min())
+        print(f"{name} int8 encode vs fp32, 128 clips: cosine min "
+              f"{float(cos.min()):.5f} (limit {COS_MIN}) [{card}]")
+        check(float(cos.min()) >= COS_MIN, f"{name} int8 encode cosine")
+        out[name] = res
+        del model, cpu, state, qnet
+        torch.cuda.empty_cache()
+    return out
+
 
 
 def main():
@@ -1126,7 +1785,10 @@ def main():
              ("B256", 16, 256, 256, np.arange(256) % 10),
              ("B512", 4, 512, 256, np.arange(512) % 10),
              ("val batch 1", 62, 40, 256, val1),
-             ("val batch 2 (wrapped)", 62, 40, 256, val2)]
+             ("val batch 2 (wrapped)", 62, 40, 256, val2),
+             # the 2D / 3D CNN nets' (B, ndense) signature (phase 9); last,
+             # so the cases above keep their draws from the generator
+             ("conv branch", None, 120, 512, pk((8, 15)))]
     results, times = {}, {}
     dist_err = {}
     for name, parts, b, d, labels in cases:
@@ -1226,15 +1888,7 @@ def main():
     warmup, nsteps = 2, 7
     step_ms, losses = [], []
 
-    def capture(net, store):
-        """Keep the signature of net's next forward and its gradient."""
-        def hook(_mod, _inp, out):
-            store["sig"] = out["signature"].detach()
-            out["signature"].register_hook(
-                lambda g: store.__setitem__("grad", g.detach().clone()))
-        return net.register_forward_hook(hook)
-
-    kstore, pstore = {}, {}
+    kstore = {}
     torch.cuda.reset_peak_memory_stats()
     K.reset_launch_counts()
     for i in range(nsteps):
@@ -1248,7 +1902,8 @@ def main():
         batch = Batch(tuple(vols), tuple(flags), labels)
         if i == nsteps - 1:     # the state the plain step starts from
             before = (copy.deepcopy(state.model.state_dict()),
-                      copy.deepcopy(state.optimizer.state_dict()))
+                      copy.deepcopy(state.optimizer.state_dict()),
+                      state.step)
             hook = capture(state.model, kstore)
         state, metrics = step(state, batch)
         torch.cuda.synchronize()
@@ -1269,35 +1924,8 @@ def main():
           f"warm-up {[round(t, 1) for t in step_ms[:warmup]]} ms), peak "
           f"{peak_gb:.1f} GB [{card}]")
 
-    plain_model = UGaitNet(mcfg, seed=0)
-    plain_model.load_state_dict(before[0])
-    plain_state = init_state(plain_model, tcfg)
-    plain_state.optimizer.load_state_dict(before[1])
-    plain_tcfg = TrainConfig(triplet_kind="batch_all_xla")
-    hook = capture(plain_model, pstore)
-    _, plain_metrics = make_train_step(mcfg, plain_tcfg)(plain_state, batch)
-    hook.remove()
-    for k in ("loss", "triplet"):
-        kv, pv = losses[-1][k], float(plain_metrics[k])
-        print(f"train step {k}: kernel {kv:.7f} plain {pv:.7f} "
-              f"(rel {abs(kv - pv) / abs(pv):.2e}, tol {STEP_RTOL})")
-        check(abs(kv - pv) <= STEP_RTOL * abs(pv), f"train step {k}")
-    # d loss / d signature in the two steps; it holds the CE term too, so a
-    # planted fault reads as (its triplet gradient - the plain one) against
-    # the whole plain gradient
-    g_total, sig = pstore["grad"], pstore["sig"]
-    w_tri = tcfg.loss_weights[0]
-    s_ = sig.clone().requires_grad_(True)
-    g_tri = w_tri * torch.autograd.grad(
-        batch_all_triplet_loss(s_, labels, tcfg.margin), s_)[0]
-    sig_err = rel_err(kstore["grad"], g_total)
-    sig_faults = {f or "none": rel_err(
-        g_total - g_tri + w_tri * analytic_grad(sig, labels, f, tcfg.margin),
-        g_total) for f in (None,) + FAULTS}
-    print(f"train step d loss / d signature {tuple(sig.shape)}, kernel step "
-          f"vs plain step: max |grad| {float(g_total.abs().max()):.2e}, of "
-          f"which the triplet term {float(g_tri.abs().max()):.2e}")
-    check_faults("signature gradient", sig_err, sig_faults)
+    sig_err, sig_faults = kernel_vs_plain_step(
+        "train", mcfg, tcfg, before, batch, kstore, losses[-1])
 
     # where the time of a float32 step goes (launch counts already read)
     def one_step():
@@ -1368,7 +1996,7 @@ def main():
         check(tf32_err[k] > CPU_REL, f"card vs CPU {k}: TF32 passes the limit")
 
     # ---- 5. eval and 6. serve (no kernel of this repo on these paths) ----
-    del state, plain_state, plain_model, model, cpu_model, before
+    del state, model, cpu_model, before
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     gallery_ds, probe_ds = casia_sets()
@@ -1414,8 +2042,26 @@ def main():
                 times.append((time.perf_counter() - t0) * 1e3)
             return float(np.median(times[warmup:]))
 
-        trainer_res = trainer_phase(card, gallery_dir, probe_dir,
+        trainer_res = trainer_phase(card, os.path.join(sets, "train"),
+                                    gallery_dir, probe_dir,
                                     isolated_step_ms, train_ms)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # ---- 8. int8 gallery, int8 encode and export -------------------------
+        int8_res = int8_phase(card, sets, gallery_dir, probe_dir,
+                              trainer_res["experdir"], serve_res)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # ---- 9. the 2D and 3D CNN branch families at full width ----------
+        K.reset_launch_counts()
+        branch_res = branch_phase(card)
+        conv_launches = {"triplet_fwd": K.fwd_launches,
+                         "triplet_bwd": K.bwd_launches}
+        check(conv_launches == {"triplet_fwd": 2 * BRANCH_STEPS,
+                                "triplet_bwd": 2 * BRANCH_STEPS},
+              f"triplet launches in phase 9's steps: {conv_launches}")
     finally:
         shutil.rmtree(sets, ignore_errors=True)
 
@@ -1426,7 +2072,9 @@ def main():
         {"name": "triplet_fwd", "route": "cuda", "source": SRC,
          "replaces": f"{PALLAS}:159", "launches": fit_launches["triplet_fwd"],
          "launches_by_path": {"train_step": launches["triplet_fwd"],
-                              "fit": fit_launches["triplet_fwd"]},
+                              "fit": fit_launches["triplet_fwd"],
+                              "conv_branch_steps":
+                                  conv_launches["triplet_fwd"]},
          "max_abs_err": fwd_err, "ms": flag_t["fwd_ms"],
          "plain_ms": flag_t["plain_fwd_ms"],
          "bound_ms": flag_t["fwd_bound"][0],
@@ -1435,7 +2083,9 @@ def main():
         {"name": "triplet_bwd", "route": "cuda", "source": SRC,
          "replaces": f"{PALLAS}:187", "launches": fit_launches["triplet_bwd"],
          "launches_by_path": {"train_step": launches["triplet_bwd"],
-                              "fit": fit_launches["triplet_bwd"]},
+                              "fit": fit_launches["triplet_bwd"],
+                              "conv_branch_steps":
+                                  conv_launches["triplet_bwd"]},
          "max_abs_err": bwd_err, "ms": flag_t["bwd_ms"],
          "plain_ms": flag_t["plain_bwd_ms"],
          "bound_ms": flag_t["bwd_bound"][0],
@@ -1457,7 +2107,8 @@ def main():
                       "card_vs_cpu_rel_err": {"tf32_off": cpu_err,
                                               "tf32_on": tf32_err},
                       "eval": eval_res, "serve": serve_res,
-                      "trainer": trainer_res}))
+                      "trainer": trainer_res, "int8": int8_res,
+                      "branches": branch_res}))
     print(f"wall time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,7 @@
 """The CUDA batch-all triplet kernel against the port's plain version, and
-the serving path's card-side ops (top-k order, augmentation) against the
-same ops on the CPU, on the card.  Imports no JAX, so it runs where only the port is installed:
+the serving path's card-side ops (top-k order, augmentation, the int8
+cross term and int8 conv sums) against the same ops on the CPU or an exact
+int64 product, on the card.  Imports no JAX, so it runs where only the port is installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
@@ -248,3 +249,37 @@ def test_cuda_checkpoint_restores_on_cuda_and_cpu(cuda, tmp_path):
         for i, st in want_st.items():
             for k, v in st.items():
                 assert torch.equal(got_st[i][k].cpu(), v.cpu()), (i, k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p", [1, 8, 128])
+def test_cuda_int8_cross_term_exact(cuda, p):
+    """The int8 gallery's cross term on the card (cuBLASLt through
+    ``int8_mm``, probe rows padded to its layout rules) equals an exact
+    int64 product, at the flagship's D = 15,872."""
+    from ugaitnet_tpu_torch.ops.knn import int8_mm
+    rng = np.random.RandomState(p)
+    a = rng.randint(-127, 128, (p, 15872)).astype(np.int8)
+    b = rng.randint(-127, 128, (2200, 15872)).astype(np.int8)
+    got = int8_mm(torch.from_numpy(a).to(cuda), torch.from_numpy(b).to(cuda))
+    want = torch.from_numpy(a).long() @ torch.from_numpy(b).long().T
+    assert got.dtype == torch.int32 and torch.equal(got.cpu().long(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,strides,same,cin,cout", [
+    ((3, 3), (1, 1), True, 32, 32), ((7, 7), (1, 1), False, 50, 64),
+    ((3, 5, 5), (1, 2, 2), False, 2, 64)])
+def test_cuda_int8_conv_matches_cpu(cuda, kernel, strides, same, cin, cout):
+    """QuantConv's int32 sums on the card equal the CPU's, bitwise."""
+    from ugaitnet_tpu_torch.ops.quantize import QuantConv
+    rng = np.random.RandomState(cin)
+    spatial = (25, 60, 60) if len(kernel) == 3 else (64, 64)
+    x = torch.from_numpy(rng.randint(-127, 128, (4, *spatial, cin))
+                         .astype(np.int8))
+    w = torch.from_numpy(rng.randint(-127, 128, (cout, *kernel, cin))
+                         .astype(np.int8))
+    conv = QuantConv(w, torch.ones(cout), 1.0, None, strides, same)
+    want = conv(x, lambda y: y)
+    got = conv.to(cuda)(x.to(cuda), lambda y: y)
+    assert got.dtype == torch.int32 and torch.equal(got.cpu(), want)

@@ -288,16 +288,19 @@ def test_unported_options_raise():
     for bad in (dataclasses.replace(cfg, extra_dense=(8,)),
                 dataclasses.replace(cfg, aux_losses=True),
                 dataclasses.replace(cfg, branches=(dataclasses.replace(
-                    cfg.branches[0], kind="conv2d"),) + cfg.branches[1:]),
-                dataclasses.replace(cfg, branches=(dataclasses.replace(
-                    cfg.branches[0], kind="conv3d"),) + cfg.branches[1:])):
+                    cfg.branches[0], flatten_output=True),)
+                    + cfg.branches[1:])):
         with pytest.raises(NotImplementedError):
             UGaitNet(bad, device="cpu")
+    with pytest.raises(ValueError, match="unknown branch kind"):
+        UGaitNet(dataclasses.replace(cfg, branches=(dataclasses.replace(
+            cfg.branches[0], kind="conv1d"),) + cfg.branches[1:]),
+            device="cpu")
     model = UGaitNet(cfg, device="cpu")
-    for kw in (dict(quantized=True), dict(gallery_dtype="int8"),
-               dict(mesh=object())):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            SignatureService(model, ("of", "gray"), **kw)
+    with pytest.raises(NotImplementedError, match="item 12"):
+        SignatureService(model, ("of", "gray"), mesh=object())
+    with pytest.raises(ValueError, match="gallery_dtype"):
+        SignatureService(model, ("of", "gray"), gallery_dtype="int4")
 
 
 def test_entry_points_default_to_cuda():
@@ -314,10 +317,11 @@ def test_entry_points_default_to_cuda():
 
 
 BANNED = {"jax", "flax", "optax", "orbax", "ugaitnet_tpu"}
-# the modules of the trainer slice, which must be among those scanned
+# modules of the later slices, which must be among those scanned
 TRAINER_SLICE = ("train/schedule.py", "train/trainer.py", "obsv/logger.py",
                  "utils/net_utils.py", "data/native.py", "core/checkpoint.py",
-                 "cli/train.py", "cli/evaluate.py")
+                 "cli/train.py", "cli/evaluate.py", "models/branches.py",
+                 "ops/quantize.py", "eval/export.py", "cli/export_model.py")
 
 
 def _port_sources():

@@ -383,6 +383,54 @@ def test_resume_planted_faults_fail_the_limit(resumed, fault):
     assert abs(got[2] - want[2]) > RESUME_ATOL, (fault, got[2], want[2])
 
 
+def _conv2d_cfgs(epochs):
+    mcfg, dcfg, tcfg = _jcfgs(epochs)
+    b = dict(kind="conv2d", filters_numbers=(8, 8, 16, 16), ndense_units=16,
+             dropout=0.4)
+    mcfg = dataclasses.replace(mcfg, branches=(
+        JBranch(modality="of", **b), JBranch(modality="gray", **b)))
+    return _tcfgs(mcfg, dcfg, tcfg)
+
+
+def _process_stream_dropout(self, x, key):
+    """Planted fault: masks from a generator seeded once per branch
+    instance (so once per process), whatever the step."""
+    gen = self.__dict__.setdefault(
+        "_fault_gen", torch.Generator().manual_seed(self._drop_seed))
+    keep = 1.0 - self.dropout
+    mask = torch.rand(x.shape, generator=gen) < keep
+    return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
+@pytest.mark.parametrize("fault", [None, "process_stream"])
+def test_resume_conv2d_dropout(tmp_path, monkeypatch, fault):
+    """A 2D CNN run with dropout 0.4 restarted from its epoch-1 checkpoint
+    repeats the uninterrupted run's epoch-2 loss within RESUME_ATOL: its
+    masks are keyed by the step count, which the checkpoint holds.  With
+    masks from a per-process stream (the planted fault) the restarted run
+    redraws epoch 1's masks and misses the limit."""
+    from ugaitnet_tpu_torch.models.branches import Conv2DBranch
+    if fault:
+        monkeypatch.setattr(Conv2DBranch, "_dropout", _process_stream_dropout)
+
+    def fit(name, epochs):
+        mcfg, dcfg, tcfg = _conv2d_cfgs(epochs)
+        t = TR.Trainer(mcfg, dcfg, tcfg, str(tmp_path / name), device="cpu")
+        return t.fit(_datasets(videos_per_subject=2)[1], val_perc=0.0)
+
+    full = fit("full", 2)
+    fit("resumed", 1)
+    state = fit("resumed", 2)
+    want, got = _losses(tmp_path / "full"), _losses(tmp_path / "resumed")
+    assert set(got) == set(want) == {1, 2} and got[1] == want[1]
+    if fault:
+        assert abs(got[2] - want[2]) > RESUME_ATOL, (got[2], want[2])
+        return
+    assert abs(got[2] - want[2]) <= RESUME_ATOL, (got[2], want[2])
+    for k, v in full.model.state_dict().items():
+        assert torch.equal(state.model.state_dict()[k], v), k
+
+
 # --- names and logging --------------------------------------------------
 
 def test_experiment_name_matches_jax():

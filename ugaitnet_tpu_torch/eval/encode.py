@@ -89,12 +89,14 @@ def encode_dataset(model: UGaitNet, ds: GaitDataset,
             flags = [f * u for f, u in zip(flags, use_mods)]
             if valid is not None:
                 flags = [f * valid for f in flags]
-            codes.append(_tap(model(vols, flags), typecode)[:real].cpu())
+            codes.append(_tap(model(vols, flags, train=False),
+                                  typecode)[:real].cpu())
             metas.append(batch_idx[:real])
             if mirror:
                 mvols = [mirror_volume(v, is_of=(m == "of"))
                          for v, m in zip(vols, modalities)]
-                codes.append(_tap(model(mvols, flags), typecode)[:real].cpu())
+                codes.append(_tap(model(mvols, flags, train=False),
+                                      typecode)[:real].cpu())
                 metas.append(batch_idx[:real])
 
     sel = pipe.indices[np.concatenate(metas)]

@@ -15,10 +15,14 @@ entries; buffers are rebuilt only when a capacity doubles.  A host master
 copy stays row-aligned with the card's buffer, so a large gallery costs
 host memory too.
 
-Not ported yet (ROADMAP.md §1 item 9): ``quantized=True`` (int8 encode,
-``ops/quantize.py``), ``gallery_dtype="int8"`` and ``mesh=`` (row-sharded
-galleries) raise ``NotImplementedError``; ``torch.export`` of the encoder
-comes with the export slice.
+``gallery_dtype="int8"`` keeps the gallery per-row int8 quantized
+(``ops/knn.py:quantize_gallery``) in three capacity-padded card buffers
+(codes, (capacity,) scales, |g|^2 of the original codes) and takes the
+distance cross term as an int8 product: a quarter of the bytes per query,
+four times the rows per card.  ``quantized=True`` encodes through the int8
+branches (``ops/quantize.py``), calibrated on ``calib_volumes``.  The
+encoder exports with ``eval/export.py``.  ``mesh=`` (row-sharded galleries)
+raises ``NotImplementedError`` (ROADMAP.md section 1, item 12).
 """
 
 from __future__ import annotations
@@ -30,43 +34,27 @@ from typing import Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ugaitnet_tpu_torch.core.config import (FRAME_H, FRAME_W,
-                                            MODALITY_CHANNELS, NUM_FRAMES,
-                                            DataConfig)
+from ugaitnet_tpu_torch.core.config import MODALITY_CHANNELS, DataConfig
 from ugaitnet_tpu_torch.data.pipeline import preprocess_batch
 from ugaitnet_tpu_torch.data.schema import GaitDataset
 from ugaitnet_tpu_torch.eval.encode import _tap
+from ugaitnet_tpu_torch.eval.export import _raw_specs
 from ugaitnet_tpu_torch.models.network import UGaitNet
-from ugaitnet_tpu_torch.ops.knn import (nearest, pairwise_l2, squared_norms,
-                                        vote)
+from ugaitnet_tpu_torch.ops.knn import (nearest, pairwise_l2,
+                                        pairwise_l2_int8, quantize_gallery,
+                                        squared_norms, vote)
 from ugaitnet_tpu_torch.ops.metrics import eer_verif_dist
+from ugaitnet_tpu_torch.ops.quantize import encode_int8, quantize_model_params
 
-_ROADMAP = "(ROADMAP.md §1 item 9, serving and export)"
+# gallery rows quantized per step of an install (about 1 GB of float32 at
+# D = 15,872)
+_INSTALL_ROWS = 16384
 
 
 def _next_pow2(n: int, floor: int = 8) -> int:
     """Smallest power of two >= max(n, floor): the gallery/class capacity
     quantum, so buffers are rebuilt log2(final gallery size) times."""
     return 1 << max(floor - 1, n - 1).bit_length()
-
-
-def _raw_specs(modalities, channels, compress_factors, batch: int,
-               with_source: bool = False
-               ) -> Dict[str, Tuple[Tuple[int, ...], np.dtype]]:
-    """(shape, dtype) of each entry of the service's raw feed at one bucket
-    size (the port's copy of ``ugaitnet_tpu/eval/export.py:_raw_specs``):
-    interleaved quantized planes (B, T*C, H, W) per modality, int16 where
-    the quantization factor is > 1 and uint8 otherwise, presence flags,
-    labels, and the dataset source where standardization needs it."""
-    spec = {}
-    for m, c, f in zip(modalities, channels, compress_factors):
-        spec[f"raw_{m}"] = ((batch, NUM_FRAMES * c, FRAME_H, FRAME_W),
-                            np.dtype(np.int16 if f > 1 else np.uint8))
-        spec[f"present_{m}"] = ((batch,), np.dtype(np.float32))
-    spec["labels"] = ((batch,), np.dtype(np.int32))
-    if with_source:
-        spec["source"] = ((batch,), np.dtype(np.int32))
-    return spec
 
 
 class SignatureService:
@@ -83,21 +71,17 @@ class SignatureService:
                  compress_factors: Optional[Sequence[float]] = None,
                  buckets: Sequence[int] = (1, 8, 32, 128),
                  quantized: bool = False,
+                 calib_volumes: Optional[Sequence] = None,
                  norm_stats: Optional[Dict] = None,
                  gallery_dtype: str = "float32",
                  mesh=None):
-        if quantized:
-            raise NotImplementedError(
-                f"quantized=True (int8 encode) is not ported yet {_ROADMAP}")
-        if gallery_dtype == "int8":
-            raise NotImplementedError(
-                f"the int8 gallery is not ported yet {_ROADMAP}")
-        if gallery_dtype != "float32":
+        if gallery_dtype not in ("float32", "int8"):
             raise ValueError(f"gallery_dtype must be float32 or int8, "
                              f"got {gallery_dtype!r}")
         if mesh is not None:
             raise NotImplementedError(
-                f"mesh serving is not ported yet {_ROADMAP}")
+                "mesh serving is not ported yet (ROADMAP.md section 1, item "
+                "12: multi-device and extras)")
         # The reference-parity signature normalizes over the BATCH axis
         # (l2_mode="reference"), so codes would depend on what else is in
         # the batch.  Serve with the per-sample normalization instead: it
@@ -142,9 +126,31 @@ class SignatureService:
                     f"norm_stats disagree on dataset-source count per "
                     f"modality: {sorted(rows)}")
             self.norm_sources = rows.pop()
+        # quantized=True: the int8 encode emits the flattened signature
+        # only; a service configured for another tap would compare float
+        # galleries and int8 probes in different embedding spaces
+        self.quantized = quantized
+        self._qnet = None
+        if quantized:
+            if typecode != 3 or model.config.extra_dense:
+                raise ValueError(
+                    "quantized=True supports typecode=3 on nets without "
+                    "extra_dense (the int8 path encodes the flattened "
+                    f"signature); got typecode={typecode}, extra_dense="
+                    f"{model.config.extra_dense}")
+            if calib_volumes is None:
+                raise ValueError("quantized=True needs calib_volumes "
+                                 "(one (B,T,H,W,C_i) batch per modality)")
+            self._qnet = quantize_model_params(model, model.config,
+                                               calib_volumes)
+        self.gallery_dtype = gallery_dtype
+        # float32: (capacity, D) codes; int8: (capacity, D) int8 codes,
+        # with their per-row scales in _gallery_scale
         self._gallery_codes: Optional[torch.Tensor] = None
-        # the buffer's squared row norms, kept with it: recomputing them
-        # per query would stream a (capacity, D) temporary every call
+        self._gallery_scale: Optional[torch.Tensor] = None
+        # |g|^2 per row, kept with the buffer: recomputing it per query
+        # would stream a (capacity, D) temporary every call (int8: from the
+        # original codes)
         self._gallery_sq: Optional[torch.Tensor] = None
         self._gallery_dense: Optional[torch.Tensor] = None
         self._gallery_bias: Optional[torch.Tensor] = None  # 0 / 1e12
@@ -168,10 +174,19 @@ class SignatureService:
             raw, self.modalities, self.channels, self.compress_factors,
             self.ntype, 1, False, self._dcfg,
             normalize=self._norm is not None, device=self.device)
-        return _tap(self.model(vols, flags), self.typecode)
+        if self._qnet is not None:
+            return encode_int8(self._qnet, vols, flags, self.model.config)
+        return _tap(self.model(vols, flags, train=False), self.typecode)
+
+    def _distances(self, codes: torch.Tensor) -> torch.Tensor:
+        """(P, D) probe codes -> (P, capacity) squared distances."""
+        if self.gallery_dtype == "int8":
+            return pairwise_l2_int8(codes, self._gallery_codes,
+                                    self._gallery_scale, self._gallery_sq)
+        return pairwise_l2(codes, self._gallery_codes, self._gallery_sq)
 
     def _dist_vote(self, codes: torch.Tensor, k: int):
-        d2 = pairwise_l2(codes, self._gallery_codes, self._gallery_sq)
+        d2 = self._distances(codes)
         # dead slots (capacity padding + removed identities) carry +1e12
         d2 = d2 + self._gallery_bias[None, :]
         d2k, idx = nearest(d2, k)
@@ -209,14 +224,34 @@ class SignatureService:
         self._capacity = capacity
         self._label_capacity = label_capacity
         n, d = self._host_codes.shape
-        self._gallery_codes = self._gallery_sq = None   # free the old first
-        buf = torch.empty((capacity, d), dtype=torch.float32,
-                          device=self.device)
-        buf[:n].copy_(torch.from_numpy(self._host_codes))
-        buf[n:].zero_()
-        self._gallery_codes = buf
-        self._gallery_sq = squared_norms(buf)
+        # free the old buffers first
+        self._gallery_codes = self._gallery_scale = self._gallery_sq = None
+        int8 = self.gallery_dtype == "int8"
+        dev = self.device
+        # dead slots: zero codes, scale 1, |g|^2 0 (the bias excludes them)
+        codes = torch.zeros((capacity, d), device=dev,
+                            dtype=torch.int8 if int8 else torch.float32)
+        sq = torch.zeros(capacity, device=dev)
+        scale = torch.ones(capacity, device=dev) if int8 else None
+        self._gallery_codes, self._gallery_scale, self._gallery_sq = \
+            codes, scale, sq
+        for s in range(0, n, _INSTALL_ROWS):
+            self._write_rows(s, self._host_codes[s:s + _INSTALL_ROWS])
         self._refresh_meta()
+
+    def _write_rows(self, pos: int, rows: np.ndarray) -> None:
+        """Write float32 code rows into the card's buffers at ``pos``, in
+        place (int8: quantized per row on the card)."""
+        x = torch.from_numpy(np.ascontiguousarray(rows)).to(self.device)
+        end = pos + len(rows)
+        if self.gallery_dtype == "int8":
+            q, scale, g2 = quantize_gallery(x)
+            self._gallery_codes[pos:end].copy_(q)
+            self._gallery_scale[pos:end].copy_(scale)
+            self._gallery_sq[pos:end].copy_(g2)
+        else:
+            self._gallery_codes[pos:end].copy_(x)
+            self._gallery_sq[pos:end].copy_(squared_norms(x))
 
     def _refresh_meta(self) -> None:
         """Recompute + upload the dense-label and bias vectors from the host
@@ -240,7 +275,9 @@ class SignatureService:
     def enroll(self, codes: np.ndarray, labels: np.ndarray) -> None:
         """Append identities to the live gallery.  Within the current
         capacities the new rows are written in place into the card's
-        buffer; past one, the gallery is rebuilt at the doubled capacity."""
+        buffers; past one, the gallery is rebuilt at the doubled capacity
+        (int8: per-row quantization, so appended rows equal a full
+        requantization)."""
         codes = np.asarray(codes, np.float32)
         labels = np.asarray(labels)
         if len(codes) != len(labels):
@@ -262,10 +299,7 @@ class SignatureService:
             self._install(_next_pow2(int(self._live.sum())),
                           _next_pow2(nuniq))
             return
-        pos = self._rows_used
-        rows = self._gallery_codes[pos:pos + n]
-        rows.copy_(torch.from_numpy(codes))
-        self._gallery_sq[pos:pos + n] = squared_norms(rows)
+        self._write_rows(self._rows_used, codes)
         self._rows_used += n
         self._refresh_meta()
 

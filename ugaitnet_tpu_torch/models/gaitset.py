@@ -107,7 +107,10 @@ class GaitSetBranch(nn.Module):
             torch.empty((nparts, c3, part_dim)), c3 * nparts,
             part_dim * nparts, generator))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False,
+                key: Optional[int] = None) -> torch.Tensor:
+        """``train`` and ``key`` are accepted for the branch interface; the
+        GaitSet branch has no dropout."""
         alpha = self.leaky_alpha
 
         def lrelu(v):

@@ -1,10 +1,10 @@
 """UGaitNet: multimodal gated-fusion gait network.
 
-Port of ``ugaitnet_tpu/models/network.py`` for the options the flagship
-uses: GaitSet branches, presence gating, the max / average / sign_max merge,
-the L2 signature, ``flatten`` and the softmax id head.  Forward taps are the
-JAX module's dict keys: ``branches``, ``fused``, ``signature``, ``flatten``,
-``classprob_logits`` and ``classprob``.
+Port of ``ugaitnet_tpu/models/network.py``: GaitSet, 2D CNN and 3D CNN
+branches (``make_branch``), presence gating, the max / average / sign_max
+merge, the L2 signature, ``flatten`` and the softmax id head.  Forward taps
+are the JAX module's dict keys: ``branches``, ``fused``, ``signature``,
+``flatten``, ``classprob_logits`` and ``classprob``.
 """
 
 from __future__ import annotations
@@ -14,24 +14,58 @@ from typing import Dict, List, Optional, Sequence
 import torch
 from torch import nn
 
-from ugaitnet_tpu_torch.core.config import ModelConfig
+from ugaitnet_tpu_torch.core.config import (NUM_FRAMES, BranchConfig,
+                                            ModelConfig)
 from ugaitnet_tpu_torch.core.device import DeviceLike, resolve_device
+from ugaitnet_tpu_torch.models.branches import Conv2DBranch, Conv3DBranch
 from ugaitnet_tpu_torch.models.gaitset import GaitSetBranch, glorot_
 from ugaitnet_tpu_torch.ops import fusion as F
+from ugaitnet_tpu_torch.ops.preprocess import frames_to_planes
 
 _ROADMAP = "(ROADMAP.md, 'The remaining model and loss surface')"
+BRANCH_KINDS = ("gaitset", "conv2d", "conv3d")
 
 
 def compute_dtype(cfg: ModelConfig) -> torch.dtype:
     return torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
 
 
+def make_branch(cfg: BranchConfig, dtype: torch.dtype,
+                generator: Optional[torch.Generator]) -> nn.Module:
+    if cfg.kind == "gaitset":
+        return GaitSetBranch(
+            cfg.in_channels, channels=cfg.gaitset_channels,
+            hpp_bins=cfg.hpp_bins, part_dim=cfg.part_dim,
+            leaky_alpha=cfg.leaky_alpha, dtype=dtype,
+            moe_experts=cfg.moe_experts, generator=generator)
+    if cfg.kind == "conv2d":
+        return Conv2DBranch(
+            NUM_FRAMES * cfg.in_channels,
+            filters_numbers=cfg.filters_numbers,
+            filters_size=cfg.filters_size, ndense_units=cfg.ndense_units,
+            dropout=cfg.dropout, activation=cfg.activation,
+            leaky_alpha=cfg.leaky_alpha, dtype=dtype, generator=generator)
+    if cfg.kind == "conv3d":
+        return Conv3DBranch(
+            cfg.in_channels, ndense_units=cfg.ndense_units,
+            activation=cfg.activation, leaky_alpha=cfg.leaky_alpha,
+            dtype=dtype, generator=generator)
+    raise ValueError(f"unknown branch kind: {cfg.kind}")
+
+
+def branch_input(bcfg: BranchConfig, volume: torch.Tensor) -> torch.Tensor:
+    """Per-branch input adaptation: the 2D branch reads the (B, T*C, H, W)
+    plane stack, the others the (B, T, H, W, C) volume."""
+    if bcfg.kind == "conv2d":
+        return frames_to_planes(volume)
+    return volume
+
+
 def _check_supported(cfg: ModelConfig) -> None:
     for b in cfg.branches:
-        if b.kind != "gaitset":
-            raise NotImplementedError(
-                f"branch kind {b.kind!r} is not ported yet {_ROADMAP}")
-        if b.flatten_output:
+        if b.kind not in BRANCH_KINDS:
+            raise ValueError(f"unknown branch kind: {b.kind}")
+        if b.kind == "gaitset" and b.flatten_output:
             raise NotImplementedError(
                 f"gaitset flatten_output is not ported yet {_ROADMAP}")
     for name in ("extra_dense", "aux_losses"):
@@ -91,15 +125,10 @@ class UGaitNet(nn.Module):
         dt = compute_dtype(config)
         self.branches = nn.ModuleDict()
         for b in config.branches:
-            self.branches[f"branch_{b.modality}"] = GaitSetBranch(
-                b.in_channels, channels=b.gaitset_channels,
-                hpp_bins=b.hpp_bins, part_dim=b.part_dim,
-                leaky_alpha=b.leaky_alpha, dtype=dt,
-                moe_experts=b.moe_experts, generator=gen)
+            self.branches[f"branch_{b.modality}"] = make_branch(b, dt, gen)
         self.classprob = None
         if config.nclasses > 0:
-            b0 = config.branches[0]
-            n_in = b0.num_parts * b0.part_dim
+            n_in = config.signature_parts * config.signature_dim
             self.classprob = nn.Linear(n_in, config.nclasses)
             glorot_(self.classprob.weight, n_in, config.nclasses, gen)
             with torch.no_grad():
@@ -111,16 +140,23 @@ class UGaitNet(nn.Module):
         return next(self.parameters()).device
 
     def forward(self, volumes: Sequence[torch.Tensor],
-                use_flags: Optional[Sequence[torch.Tensor]] = None
+                use_flags: Optional[Sequence[torch.Tensor]] = None,
+                train: Optional[bool] = None, key: Optional[int] = None
                 ) -> Dict[str, object]:
-        """use_flags[i]: (B,) presence flags (None => all present)."""
+        """use_flags[i]: (B,) presence flags (None => all present).
+        train: dropout on (the JAX module's ``train``); None follows the
+        module's training mode.  key: the dropout masks' key (the JAX
+        module's dropout rng), needed where a train-mode branch drops."""
         cfg = self.config
+        if train is None:
+            train = self.training
         batch = volumes[0].shape[0]
         if use_flags is None:
             use_flags = [torch.ones((batch,), dtype=torch.float32,
                                     device=volumes[0].device)
                          for _ in cfg.branches]
         embeddings: List[torch.Tensor] = [
-            self.branches[f"branch_{b.modality}"](volumes[i])
+            self.branches[f"branch_{b.modality}"](
+                branch_input(b, volumes[i]), train, key)
             for i, b in enumerate(cfg.branches)]
         return _head_forward(cfg, embeddings, use_flags, self.classprob)

@@ -1,8 +1,20 @@
 """kNN gallery search on the device.
 
-Port of ``ugaitnet_tpu/ops/knn.py`` (the float32 paths).  The probes x
+Port of ``ugaitnet_tpu/ops/knn.py`` on one device: the float32 paths and the
+int8 gallery (``quantize_gallery``, ``pairwise_l2_int8``).  The probes x
 gallery distances are one matmul, a top-k picks the neighbors and the vote
 is a one-hot sum; only the final labels come back to the host.
+
+The int8 cross term is ``torch._int_mm`` (exact int32 sums), as the JAX
+package leaves it to an XLA dot.  On a card it is cuBLASLt's int8 GEMM,
+which takes A row-major and B column-major (so the gallery's (G, D) rows
+go in as ``B = gallery.T``, no copy), and refuses an M of 16 rows or
+fewer and a K or N that is not a multiple of 8: ``int8_mm`` pads M to at
+least 24 rows and every dimension to a multiple of 8 with zeros, which
+add nothing to the sums.  The serving gallery's power-of-two capacity and
+every configured code width (62 x part_dim, ndense_units) are multiples
+of 8 already, so only the probe rows are padded there.  int32 cannot
+overflow: D * 127^2 = 2.56e8 at D = 15,872.
 
 Neighbor order: ``jax.lax.top_k`` returns the lower index first among
 equal values, and ``torch.topk`` promises no order at all.  Exact ties are
@@ -25,6 +37,76 @@ import numpy as np
 import torch
 
 from ugaitnet_tpu_torch.core.device import DeviceLike, resolve_device
+
+
+def _pad_to(x: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
+    if x.shape == (rows, cols):
+        return x
+    return torch.nn.functional.pad(x, (0, cols - x.shape[1],
+                                       0, rows - x.shape[0]))
+
+
+def int8_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(M, K) int8 x (N, K) int8 -> (M, N) int32, a @ b.T, exact."""
+    m, k = a.shape
+    n = b.shape[0]
+    up = lambda v: -(-v // 8) * 8
+    kp = up(k)
+    out = torch._int_mm(_pad_to(a, max(24, up(m)), kp),
+                        _pad_to(b, up(n), kp).t())
+    return out[:m, :n]
+
+
+# float32(1 / 127): XLA compiles the probes' ``max / 127.0`` in
+# pairwise_l2_int8 into a multiply by this constant (numpy's
+# quantize_gallery divides)
+_RECIP_127 = float(np.float32(1.0) / np.float32(127.0))
+
+
+def quantize_rows(x: torch.Tensor, xla_scale: bool = False
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-row int8: (q (N, D) int8, scale (N,)), scale =
+    max(max |row|, 1e-30) / 127 (times float32(1/127) with ``xla_scale``)
+    and q = clip(round(x / scale), -127, 127), rounding half to even, as
+    ``jnp.round`` and ``np.rint`` do."""
+    amax = torch.clamp_min(x.abs().amax(dim=1), 1e-30)
+    scale = amax * _RECIP_127 if xla_scale else amax / 127.0
+    q = torch.clamp(torch.round(x / scale[:, None]), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def quantize_gallery(codes) -> Tuple[torch.Tensor, torch.Tensor,
+                                      torch.Tensor]:
+    """Symmetric per-ROW int8 quantization of (G, D) float32 codes (a
+    tensor, on its device, or an array): (int8 codes, (G,) scales, |g|^2),
+    |g|^2 from the ORIGINAL codes, so only the cross term of the distance is
+    quantized.  Per-row scales keep one outlier row from costing every other
+    row its resolution.  The codes and scales are the JAX package's
+    (numpy) values bitwise; |g|^2 sums in torch's order."""
+    codes = torch.as_tensor(codes, dtype=torch.float32)
+    if codes.shape[0] == 0:
+        n = codes.shape[0]
+        return (codes.to(torch.int8), torch.ones(n, device=codes.device),
+                torch.zeros(n, device=codes.device))
+    q, scale = quantize_rows(codes)
+    return q, scale, squared_norms(codes)
+
+
+def pairwise_l2_int8(probes: torch.Tensor, gallery_i8: torch.Tensor,
+                     gallery_scale: torch.Tensor, g2: torch.Tensor
+                     ) -> torch.Tensor:
+    """(P, D) float32 x (G, D) int8 -> (P, G) squared-L2.
+
+    Probes are quantized per row; the cross term is int8 x int8 -> int32
+    and rescaled in float32 by the per-row probe scales, then by the
+    per-row gallery scales, in the JAX package's order; |q|^2 and |g|^2
+    stay float32.  The probe scales and codes are those of the JAX
+    function as jit compiles it (the serving path), bitwise."""
+    p2 = squared_norms(probes)[:, None]
+    q, ps = quantize_rows(probes, xla_scale=True)
+    dot = int8_mm(q, gallery_i8).to(torch.float32) * ps[:, None] \
+        * gallery_scale[None, :]
+    return torch.clamp_min(p2 + g2[None, :] - 2.0 * dot, 0.0)
 
 
 def squared_norms(x: torch.Tensor) -> torch.Tensor:

@@ -17,7 +17,7 @@ below compute in float32 with float32 betas, eps and decay.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, NamedTuple, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -213,9 +213,22 @@ def set_lr(state: TrainState, lr: float) -> TrainState:
 
 
 def l2_regularization(model: UGaitNet, mcfg: ModelConfig) -> torch.Tensor:
-    """Keras kernel_regularizer parity: the gaitset branch has none, and
-    the port builds gaitset branches only."""
-    return torch.zeros((), dtype=torch.float32, device=model.device)
+    """Keras kernel_regularizer parity (``train_step.py:l2_regularization``
+    of the JAX package): on 2D CNN branches l2(weight_decay) on every conv
+    kernel and l2(1e-3) on the ``code`` kernel; on 3D CNN branches l2(1e-3)
+    on the 1x1x1 ``code`` kernel; the GaitSet branch has none.  Keras l2(c)
+    adds c * sum(w^2)."""
+    total = torch.zeros((), dtype=torch.float32, device=model.device)
+    for bcfg in mcfg.branches:
+        branch = model.branches[f"branch_{bcfg.modality}"]
+        if bcfg.kind == "conv2d":
+            for i in range(branch.convs):
+                w = getattr(branch, f"conv{i}").weight
+                total = total + bcfg.weight_decay * torch.sum(w * w)
+        if bcfg.kind in ("conv2d", "conv3d"):
+            w = branch.code.weight
+            total = total + 1e-3 * torch.sum(w * w)
+    return total
 
 
 def losses_from_outputs(out: Dict[str, object], model: UGaitNet,
@@ -252,19 +265,22 @@ def losses_from_outputs(out: Dict[str, object], model: UGaitNet,
 
 
 def compute_losses(model: UGaitNet, batch: Batch, mcfg: ModelConfig,
-                   tcfg: TrainConfig
+                   tcfg: TrainConfig, key: Optional[int] = None
                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    out = model(list(batch.volumes), list(batch.use_flags))
+    out = model(list(batch.volumes), list(batch.use_flags), key=key)
     return losses_from_outputs(out, model, batch, mcfg, tcfg)
 
 
 def make_train_step(mcfg: ModelConfig, tcfg: TrainConfig):
     """step(state, batch) -> (state, metrics): one forward, backward and
-    Adam update, in place.  The gradients of the step stay in ``.grad``."""
+    Adam update, in place.  The gradients of the step stay in ``.grad``.
+    Dropout masks are keyed by ``state.step`` (the JAX step folds it into
+    its dropout key), so a resumed run draws an uninterrupted run's."""
     def step(state: TrainState, batch: Batch):
         state.model.train()
         state.optimizer.zero_grad(set_to_none=True)
-        total, metrics = compute_losses(state.model, batch, mcfg, tcfg)
+        total, metrics = compute_losses(state.model, batch, mcfg, tcfg,
+                                        key=state.step)
         total.backward()
         state.optimizer.step()
         state.step += 1
