@@ -101,7 +101,21 @@ channels (32, 64, 128), part_dim 256, 62 parts, sign_max merge, 74 classes):
      state, batch and dropout masks (losses within 1e-5, the signature
      gradient against planted faults, as in phase 3), the Keras L2 term
      card vs CPU within 1e-6 relative, and
-     the int8 encode's cosine to float32 >= 0.99 on 128 clips.
+     the int8 encode's cosine to float32 >= 0.99 on 128 clips;
+ 10. the rest of the model and loss surface at the flagship's width
+     (deterministic cuDNN): casenet C with postriplet 2, aux heads and
+     dropcode 0.4, 3 Adam steps at B = 120 through the triplet kernel
+     at (62, 120, 256) on the per-row L2 code, the last again with the
+     plain triplet (losses within 1e-6, the signature gradient against
+     planted faults), then one postriplet-1 step likewise, with exact
+     launch counts; the head alone (``_head_forward`` on the card's
+     branch embeddings) card vs CPU within 3e-5 (and not with TF32 on);
+     semi-hard and hard at (62, 120, 256), contrastive_aux at (120,
+     15,872), focal at (120, 74) and verif_pair, each card vs CPU (value,
+     gradient, near ties of the selecting kinds counted) and timed
+     forward + backward; a flagship step with and without remat
+     (gradients equal, peak memory and step ms); the Siamese pair step on
+     the 2D CNN net, 2 x 60 clips, margin 0.5.
 
 Gradient limits scale with each case, and every run reads planted faults
 (a backward without the g^T term, with the negative role's sign flipped,
@@ -419,10 +433,10 @@ def capture(net, store):
 
 
 def kernel_vs_plain_step(name, mcfg, tcfg, before, batch, kstore,
-                         kernel_losses):
+                         kernel_losses, rtol=STEP_RTOL):
     """One step with the plain triplet from the state a kernel step started
     from (``before``: model and optimizer state dicts, step count), on the
-    same batch: the losses within STEP_RTOL of the kernel step's, and
+    same batch: the losses within ``rtol`` of the kernel step's, and
     d loss / d signature (held in ``kstore`` by ``capture``) against the
     plain step's, with planted faults read against GRAD_REL.  The gradient
     holds the CE term too, so a fault reads as (its triplet gradient - the
@@ -445,8 +459,8 @@ def kernel_vs_plain_step(name, mcfg, tcfg, before, batch, kstore,
     for k in ("loss", "triplet"):
         kv, pv = kernel_losses[k], float(plain_metrics[k])
         print(f"{name} step {k}: kernel {kv:.7f} plain {pv:.7f} "
-              f"(rel {abs(kv - pv) / abs(pv):.2e}, tol {STEP_RTOL})")
-        check(abs(kv - pv) <= STEP_RTOL * abs(pv), f"{name} step {k}")
+              f"(rel {abs(kv - pv) / abs(pv):.2e}, tol {rtol})")
+        check(abs(kv - pv) <= rtol * abs(pv), f"{name} step {k}")
     g_total, sig = pstore["grad"], pstore["sig"]
     w_tri = tcfg.loss_weights[0]
     s_ = sig.clone().requires_grad_(True)
@@ -462,6 +476,23 @@ def kernel_vs_plain_step(name, mcfg, tcfg, before, batch, kstore,
           f" of which the triplet term {float(g_tri.abs().max()):.2e}")
     check_faults(f"{name} signature gradient", sig_err, sig_faults)
     return sig_err, sig_faults
+
+
+def raw_batch(b, ids, seed):
+    """b raw clips on the card (int16 OF planes, uint8 gray planes), all
+    modalities present, labels ids x (b / ids), from a seeded generator."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return {
+        "raw_of": torch.randint(-3000, 3000, (b, 50, 60, 60), device=dev,
+                                generator=g, dtype=torch.int16),
+        "raw_gray": torch.randint(0, 255, (b, 25, 60, 60), device=dev,
+                                  generator=g, dtype=torch.uint8),
+        "present_of": torch.ones(b, device=dev),
+        "present_gray": torch.ones(b, device=dev),
+        "labels": torch.as_tensor(np.repeat(np.arange(ids), b // ids),
+                                  dtype=torch.int32, device=dev),
+    }
 
 
 def median_ms(fn, n=5):
@@ -1547,23 +1578,9 @@ def branch_phase(card):
     from ugaitnet_tpu_torch.train.train_step import (Batch, init_state,
                                                      l2_regularization,
                                                      make_train_step)
-    dev = torch.device("cuda")
     dcfg = DataConfig()
     mods = (MODS, (2, 1), (100.0, 1.0), 2)
     out = {}
-
-    def raw_batch(b, ids, seed):
-        g = torch.Generator(device=dev).manual_seed(seed)
-        return {"raw_of": torch.randint(-3000, 3000, (b, 50, 60, 60),
-                                        device=dev, generator=g,
-                                        dtype=torch.int16),
-                "raw_gray": torch.randint(0, 255, (b, 25, 60, 60),
-                                          device=dev, generator=g,
-                                          dtype=torch.uint8),
-                "present_of": torch.ones(b, device=dev),
-                "present_gray": torch.ones(b, device=dev),
-                "labels": torch.as_tensor(np.repeat(np.arange(ids), b // ids),
-                                          dtype=torch.int32, device=dev)}
 
     for name, flags in (("conv2d", ["--no-gaitset"]),
                         ("conv3d", ["--no-gaitset", "--use3d"])):
@@ -1670,6 +1687,420 @@ def branch_phase(card):
         torch.cuda.empty_cache()
     return out
 
+
+
+SURFACE_STEPS = 3
+# phase 10: the head alone (``_head_forward`` on the same branch
+# embeddings), card vs CPU: max |card - CPU| <= HEAD_CPU_REL * max |CPU| per
+# tap.  The head is three float32 GEMMs and elementwise ops, so the two
+# differ only in summation order (~1e-6 expected), ten times inside phase
+# 4's CPU_REL; TF32 rounds the GEMMs' inputs to 10 mantissa bits (~4e-4 of
+# each product), which must fail it.
+HEAD_CPU_REL = 3e-5
+# phase 10's losses, card vs CPU on the same inputs: values within
+# LOSS_RTOL (float32 sums in another order, ~1e-7 expected); gradients
+# max |card - CPU| <= LOSS_GRAD_REL * max |CPU| (the distances behind them
+# differ by the Gram formula's rounding, ~1e-7 relative).  The semi-hard and
+# hard kinds select by comparing distances: where two compared distances of
+# the CPU lie within twice the largest card - CPU distance gap, the card may
+# select the other way.  Those near ties are counted; the value may move by
+# what each could change, and the gradient is held on the (sample, part)
+# entries no near tie touches.  On the card's own distances, card and CPU
+# select alike: value and gradient within SAME_DIST_REL.
+LOSS_RTOL = 1e-5
+LOSS_GRAD_REL = 1e-4
+SAME_DIST_REL = 1e-6
+# phase 10's kernel step vs the plain-triplet step from the same state
+SURFACE_STEP_RTOL = 1e-6
+# remat vs no remat, same state and batch: gradients max |delta| <=
+# REMAT_REL * max |grad| per parameter (the same ops re-executed; bitwise
+# under deterministic cuDNN)
+REMAT_REL = 1e-6
+
+
+def semi_hard_ties(d, lab, w, margin):
+    """Near ties of the semi-hard selection on (P, B, B) distances ``d`` at
+    window ``w``, per (part, anchor a, positive q): a negative within w of
+    d(a, q) (outside on one device, not on the other), the two nearest
+    outside candidates within w of each other, the two farthest negatives
+    within w where the inside fallback applies, or the hinge within w of 0.
+    Returns (count, the most the value can move, a (B, P) mask of the
+    gradient entries a tie can move: a, q, the three nearest candidates and
+    the two farthest negatives)."""
+    b, parts = lab.shape[0], d.shape[0]
+    same = lab[:, None] == lab[None, :]
+    neg = ~same
+    pos = same & ~torch.eye(b, dtype=torch.bool, device=d.device)
+    num_pos = int(pos.sum())
+    inf = torch.tensor(float("inf"), device=d.device)
+    count, change = 0, 0.0
+    touched = torch.zeros(b, parts, dtype=torch.bool, device=d.device)
+    for p, dp in enumerate(d):
+        dn, dq = dp[:, None, :], dp[:, :, None]        # [a, q, n]
+        boundary = (((dn - dq).abs() < w) & neg[:, None, :]).any(2)
+        # every negative that is outside on either device, nearest first
+        cand = torch.where(neg[:, None, :] & (dn > dq - w), dn, inf)
+        near, nidx = torch.topk(cand, 3, dim=2, largest=False)
+        far, fidx = torch.topk(torch.where(neg, dp, -inf), 2, dim=1)
+        no_outside = torch.isinf(near[..., 0])
+        second = (near[..., 1] - near[..., 0]) < w
+        inside = no_outside & ((far[:, 0] - far[:, 1]) < w)[:, None]
+        sel = torch.where(no_outside, far[:, :1], near[..., 0])
+        hinge = (margin + dp - sel).abs() < w
+        tied = (boundary | second | inside | hinge) & pos
+        if not bool(tied.any()):
+            continue
+        a, q = torch.nonzero(tied, as_tuple=True)
+        count += len(a)
+        # the selected negative moves at most from the nearest candidate to
+        # the third; without three candidates, at most by the largest d
+        span = near[a, q, 2] - near[a, q, 0]
+        span = torch.where(torch.isfinite(span), span, dp.max())
+        change += float((span + w).sum()) / (num_pos * parts)
+        for j in (a, q, nidx[a, q].reshape(-1), fidx[a].reshape(-1)):
+            touched[j, p] = True
+    return count, change, touched
+
+
+def hard_ties(d, lab, w, margin):
+    """Near ties of the hard selection: per (part, anchor) the two farthest
+    positives, or the two nearest negatives, within w; or the hinge within w
+    of 0.  Returns (count, the value's possible change, (B, P) mask)."""
+    b = lab.shape[0]
+    same = lab[:, None] == lab[None, :]
+    pos = same & ~torch.eye(b, dtype=torch.bool, device=d.device)
+    inf = torch.tensor(float("inf"), device=d.device)
+    pv, pi = torch.topk(torch.where(pos, d, -inf), 2, dim=2)
+    nv, ni = torch.topk(torch.where(~same, d, inf), 2, dim=2, largest=False)
+    tied = (((pv[..., 0] - pv[..., 1]) < w) | ((nv[..., 1] - nv[..., 0]) < w)
+            | ((pv[..., 0] - nv[..., 0] + margin).abs() < w))     # (P, B)
+    touched = torch.zeros(b, d.shape[0], dtype=torch.bool, device=d.device)
+    for p, a in torch.nonzero(tied).tolist():
+        touched[[a] + pi[p, a].tolist() + ni[p, a].tolist(), p] = True
+    count = int(tied.sum())
+    return count, count * w / (b * d.shape[0]), touched
+
+
+def surface_phase(card, kernel_ms):
+    """10. The rest of the model and loss surface at the flagship's width:
+    casenet C with postriplet 2, aux heads and dropcode through the triplet
+    kernel (and one postriplet-1 step); the head alone card vs CPU; the
+    semi-hard, hard, contrastive, focal and pair losses card vs CPU; remat
+    against no remat; the Siamese pair step on the 2D CNN net."""
+    from ugaitnet_tpu_torch.cli import train as cli_train
+    from ugaitnet_tpu_torch.core.config import (BranchConfig, DataConfig,
+                                                ModelConfig, TrainConfig)
+    from ugaitnet_tpu_torch.data.pipeline import preprocess_batch
+    from ugaitnet_tpu_torch.models.network import (UGaitNet, _head_forward,
+                                                   branch_input)
+    from ugaitnet_tpu_torch.ops import losses as L
+    from ugaitnet_tpu_torch.ops import triplet as TT
+    from ugaitnet_tpu_torch.ops.cuda import triplet_kernel as K
+    from ugaitnet_tpu_torch.train.train_step import (
+        Batch, PairBatch, embed_pair_side, init_state, make_pair_train_step,
+        make_train_step, pair_keys)
+    dev = torch.device("cuda")
+    dcfg = DataConfig()
+    mods = (MODS, (2, 1), (100.0, 1.0), 2)
+    base = ModelConfig(
+        branches=(BranchConfig(kind="gaitset", modality="of"),
+                  BranchConfig(kind="gaitset", modality="gray")),
+        merge="sign_max", nclasses=74)
+    tcfg = TrainConfig()
+    out = {}
+    torch.backends.cudnn.deterministic = True
+
+    # ---- (a) casenet C, postriplet 2, aux heads, dropcode 0.4 -------------
+    mcfg = dataclasses.replace(base, extra_dense=(256,), postriplet=2,
+                               aux_losses=True, dropout_code=0.4)
+    state = init_state(UGaitNet(mcfg, seed=0), tcfg)
+    step = make_train_step(mcfg, tcfg)
+    raw = raw_batch(40, 8, seed=21)
+    gen = torch.Generator().manual_seed(0)
+    losses, step_ms, kstore = [], [], {}
+    K.reset_launch_counts()
+    for i in range(SURFACE_STEPS):
+        r = dict(raw)
+        r["raw_of"] = raw["raw_of"] ^ i
+        r["raw_gray"] = raw["raw_gray"] ^ i
+        v, f, lab = preprocess_batch(r, *mods, 3, True, dcfg, generator=gen)
+        batch = Batch(tuple(v), tuple(f), lab)
+        if i == SURFACE_STEPS - 1:   # the state the plain step starts from
+            before = (copy.deepcopy(state.model.state_dict()),
+                      copy.deepcopy(state.optimizer.state_dict()),
+                      state.step)
+            hook = capture(state.model, kstore)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, m = step(state, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append({k: float(x) for k, x in m.items()})
+    hook.remove()
+    launches = {"triplet_fwd": K.fwd_launches, "triplet_bwd": K.bwd_launches}
+    check(launches == {"triplet_fwd": SURFACE_STEPS,
+                       "triplet_bwd": SURFACE_STEPS},
+          f"casenet C steps: triplet launches {launches}")
+    check(tuple(kstore["sig"].shape) == (120, 62, 256),
+          f"postriplet 2 signature {tuple(kstore['sig'].shape)}")
+    check(all(np.isfinite(x) for m in losses for x in m.values())
+          and {"aux_ce_0", "aux_ce_1"} <= set(losses[-1]),
+          f"casenet C losses {losses}")
+    print(f"casenet C postriplet 2 + aux + dropcode 0.4: {SURFACE_STEPS} "
+          f"Adam steps B=120, losses "
+          f"{[round(m['loss'], 6) for m in losses]}, triplet launches "
+          f"{launches}, step ms {[round(t, 2) for t in step_ms]} (the "
+          f"first after a new config) [{card}]")
+    pt2 = dict(losses=losses, step_ms=step_ms, launches=launches)
+    pt2["sig_grad_rel_err"] = kernel_vs_plain_step(
+        "casenet C pt2", mcfg, tcfg, before, batch, kstore, losses[-1],
+        rtol=SURFACE_STEP_RTOL)
+    del before
+
+    # the head alone, on the card's branch embeddings, card vs CPU
+    net = state.model
+    net.eval()
+    with torch.inference_mode():
+        emb = [net.branches[f"branch_{b.modality}"](branch_input(b, x))
+               for b, x in zip(mcfg.branches, batch.volumes)]
+    cpu_net = copy.deepcopy(net).to("cpu")
+    with torch.inference_mode():
+        on_cpu = _head_forward(mcfg, [e.cpu() for e in emb],
+                               [f.cpu() for f in batch.use_flags], cpu_net)
+
+    def head_err(tf32):
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        torch.backends.cudnn.allow_tf32 = tf32
+        with torch.inference_mode():
+            o = _head_forward(mcfg, emb, batch.use_flags, net)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        err = {k: rel_err(o[k].cpu(), on_cpu[k]) for k in
+               ("signature", "code", "flatten", "classprob_logits")}
+        for i, al in enumerate(o["aux_logits"]):
+            err[f"aux_logits_{i}"] = rel_err(al.cpu(), on_cpu["aux_logits"][i])
+        return err
+    head, head_tf32 = head_err(False), head_err(True)
+    print(f"head alone (B=120), card vs CPU, max |d| / max |CPU| (limit "
+          f"{HEAD_CPU_REL}): " + ", ".join(f"{k} {v:.2e}" for k, v in
+                                            head.items())
+          + f"; with TF32 on, largest {max(head_tf32.values()):.2e} [{card}]")
+    check(max(head.values()) <= HEAD_CPU_REL, "head alone card vs CPU")
+    check(max(head_tf32.values()) > HEAD_CPU_REL,
+          "head alone: TF32 passes the limit")
+    pt2.update(head_card_vs_cpu=head, head_card_vs_cpu_tf32=head_tf32)
+    out["casenet_c_pt2"] = pt2
+    del state, net, cpu_net, emb
+
+    # one step at postriplet 1
+    mcfg1 = dataclasses.replace(mcfg, postriplet=1)
+    state = init_state(UGaitNet(mcfg1, seed=0), tcfg)
+    before = (copy.deepcopy(state.model.state_dict()),
+              copy.deepcopy(state.optimizer.state_dict()), state.step)
+    kstore = {}
+    hook = capture(state.model, kstore)
+    K.reset_launch_counts()
+    _, m = make_train_step(mcfg1, tcfg)(state, batch)
+    launches1 = {"triplet_fwd": K.fwd_launches,
+                 "triplet_bwd": K.bwd_launches}
+    hook.remove()
+    check(launches1 == {"triplet_fwd": 1, "triplet_bwd": 1},
+          f"postriplet 1 step: triplet launches {launches1}")
+    pt1_losses = {k: float(x) for k, x in m.items()}
+    check(all(np.isfinite(x) for x in pt1_losses.values()),
+          f"postriplet 1 losses {pt1_losses}")
+    out["casenet_c_pt1"] = dict(
+        losses=pt1_losses, launches=launches1,
+        sig_grad_rel_err=kernel_vs_plain_step(
+            "casenet C pt1", mcfg1, tcfg, before, batch, kstore, pt1_losses,
+            rtol=SURFACE_STEP_RTOL))
+    del state, before
+    out["launches"] = {k: launches[k] + launches1[k] for k in launches}
+
+    # ---- (b) the losses, card vs CPU -----------------------------------
+    g = torch.Generator(device=dev).manual_seed(22)
+    lab = torch.as_tensor(np.repeat(np.arange(8), 15), dtype=torch.int32,
+                          device=dev)
+    x = torch.randn(120, 62, 256, device=dev, generator=g)
+    margin = tcfg.margin
+
+    def value_grad(fn, *args):
+        """fn's value and its gradients w.r.t. the floating args."""
+        leaves = [a.detach().clone().requires_grad_(True)
+                  if a.is_floating_point() else a for a in args]
+        v = fn(*leaves)
+        grads = torch.autograd.grad(
+            v, [a for a in leaves if a.requires_grad])
+        return float(v.detach()), grads
+
+    def timed(fn, *args):
+        """Forward + backward ms on the card (CUDA events)."""
+        leaves = [a.detach().clone().requires_grad_(True)
+                  if a.is_floating_point() else a for a in args]
+        diff = [a for a in leaves if a.requires_grad]
+        return cuda_ms(lambda: torch.autograd.grad(fn(*leaves), diff), 10)
+
+    loss_res = {}
+    d_card = TT.pairwise_dist(x.transpose(0, 1))
+    d_cpu = TT.pairwise_dist(x.cpu().transpose(0, 1))
+    w = 2.0 * float((d_card.cpu() - d_cpu).abs().max())
+    for kind, from_dist, ties in (
+            ("semi_hard", TT.semi_hard_from_dist, semi_hard_ties),
+            ("hard", TT.hard_from_dist, hard_ties)):
+        fn = TT.make_triplet_loss(kind, margin)
+        vc, (gc_,) = value_grad(fn, x, lab)
+        vp, (gp,) = value_grad(fn, x.cpu(), lab.cpu())
+        # on the card's own distances: the same selection on both devices
+        vdc, (gdc,) = value_grad(lambda d, l: from_dist(d, l, margin),
+                                 d_card, lab)
+        vdp, (gdp,) = value_grad(lambda d, l: from_dist(d, l, margin),
+                                 d_card.cpu(), lab.cpu())
+        same_v = abs(vdc - vdp) / abs(vdp)
+        same_g = rel_err(gdc.cpu(), gdp)
+        n_ties, change, touched = ties(d_cpu.to(dev), lab, w, margin)
+        keep = ~touched.cpu()
+        g_err = rel_err(gc_.cpu()[keep], gp[keep])
+        ms = timed(fn, x, lab)
+        loss_res[kind] = dict(value=vc, cpu=vp, rel=abs(vc - vp) / abs(vp),
+                              allowance=change, near_ties=n_ties,
+                              entries_touched=int(touched.sum()),
+                              grad_rel_err_untouched=g_err,
+                              same_dist_rel=same_v, same_dist_grad=same_g,
+                              ms=ms)
+        print(f"{kind} (62, 120, 256), card vs CPU: value {vc:.7f} vs "
+              f"{vp:.7f} (|d| {abs(vc - vp):.2e} <= {LOSS_RTOL} |v| + "
+              f"{change:.2e} for {n_ties} near ties at window {w:.2e}); "
+              f"gradient {g_err:.2e} <= {LOSS_GRAD_REL} on the "
+              f"{int(keep.sum())} of {keep.numel()} (sample, part) entries "
+              f"no near tie touches; on the card's distances value "
+              f"{same_v:.2e}, gradient {same_g:.2e} <= {SAME_DIST_REL}; "
+              f"fwd + bwd {ms:.3f} ms (triplet kernel fwd + bwd "
+              f"{kernel_ms:.3f} ms) [{card}]")
+        check(abs(vc - vp) <= LOSS_RTOL * abs(vp) + change, f"{kind} value")
+        check(g_err <= LOSS_GRAD_REL, f"{kind} gradient")
+        check(same_v <= SAME_DIST_REL and same_g <= SAME_DIST_REL,
+              f"{kind} on the same distances")
+        check(keep.float().mean() >= 0.5,
+              f"{kind}: near ties touch most gradient entries")
+
+    flat = torch.randn(120, 15872, device=dev, generator=g)
+    coded = lab * 100 + torch.randint(0, 11, (120,), device=dev,
+                                      generator=g, dtype=torch.int32)
+    probs = torch.softmax(3.0 * torch.randn(120, 74, device=dev,
+                                            generator=g), dim=-1)
+    onehot = torch.nn.functional.one_hot(lab.long(), 74).float()
+    e1, e2 = flat[:60] / 100.0, flat[60:] / 100.0
+    pair = (lab[:60] == lab[torch.randperm(120, device=dev,
+                                           generator=g)[60:]]).int()
+    res2 = ((e1 - e2) ** 2).sum(1)
+    # a margin past the pooled negative residual, so both terms are active
+    pair_margin = 1.5 * float(res2[pair == 0].sum().sqrt())
+    for name, fn, args in (
+            ("contrastive_aux", TT.contrastive_aux_loss, (flat, coded)),
+            ("focal", L.sigmoid_focal_crossentropy, (probs, onehot)),
+            ("verif_pair", lambda a, b, l: L.verif_pair_loss(
+                a, b, l, pair_margin), (e1, e2, pair))):
+        vc, gcs = value_grad(fn, *args)
+        vp, gps = value_grad(fn, *[a.cpu() for a in args])
+        rel = abs(vc - vp) / abs(vp)
+        g_err = max(rel_err(a.cpu(), b) for a, b in zip(gcs, gps))
+        ms = timed(fn, *args)
+        loss_res[name] = dict(value=vc, cpu=vp, rel=rel, grad_rel_err=g_err,
+                              ms=ms)
+        print(f"{name} {tuple(args[0].shape)}, card vs CPU: value {vc:.7g} "
+              f"vs {vp:.7g} (rel {rel:.2e} <= {LOSS_RTOL}), gradient "
+              f"{g_err:.2e} <= {LOSS_GRAD_REL}; fwd + bwd {ms:.3f} ms "
+              f"[{card}]")
+        check(rel <= LOSS_RTOL and g_err <= LOSS_GRAD_REL, f"{name} card vs CPU")
+    out["losses"] = loss_res
+
+    # ---- (c) remat ---------------------------------------------------------
+    remat_res, grads = {}, {}
+    for remat in (False, True):
+        gc.collect()
+        torch.cuda.empty_cache()
+        cfg = dataclasses.replace(base, remat=remat)
+        st = init_state(UGaitNet(cfg, seed=0), tcfg)
+        fn = make_train_step(cfg, tcfg)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for i in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, m = fn(st, batch)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            if i == 0:
+                peak = torch.cuda.max_memory_allocated() / 1e9
+                grads[remat] = {k: p.grad.detach().clone()
+                                for k, p in st.model.named_parameters()}
+                loss0 = float(m["loss"])
+        remat_res[remat] = dict(peak_gb=peak, step_ms=times, loss=loss0)
+        del st, fn
+    diff = max(float((grads[True][k] - g0).abs().max() / g0.abs().max())
+               for k, g0 in grads[False].items())
+    bitwise = all(torch.equal(grads[True][k], g0)
+                  for k, g0 in grads[False].items())
+    print(f"remat: gradients max |d| / max |grad| {diff:.2e} (limit "
+          f"{REMAT_REL}; bitwise {bitwise}), loss "
+          f"{remat_res[False]['loss']:.7f} vs {remat_res[True]['loss']:.7f};"
+          f" peak {remat_res[False]['peak_gb']:.2f} GB -> "
+          f"{remat_res[True]['peak_gb']:.2f} GB; step ms "
+          f"{[round(t, 2) for t in remat_res[False]['step_ms']]} -> "
+          f"{[round(t, 2) for t in remat_res[True]['step_ms']]} [{card}]")
+    check(diff <= REMAT_REL, "remat gradients")
+    check(remat_res[True]["peak_gb"] < remat_res[False]["peak_gb"],
+          "remat does not lower the peak")
+    out["remat"] = dict(grad_rel_diff=diff, bitwise=bitwise,
+                        off=remat_res[False], on=remat_res[True])
+    del grads
+
+    # ---- (d) the pair step on the 2D CNN net ------------------------------
+    args = cli_train.build_parser().parse_args(
+        ["--mod0", "of", "--mod1", "gray", "--nclasses", "74",
+         "--no-gaitset", "--margin", "0.5"])
+    cnn_cfg, _, cnn_tcfg = cli_train.configs_from_args(args)
+    st = init_state(UGaitNet(cnn_cfg, seed=0), cnn_tcfg)
+    pstep = make_pair_train_step(cnn_tcfg)
+    perm = torch.as_tensor(np.random.RandomState(0).permutation(120),
+                           device=dev)
+
+    def side(idx):
+        return Batch(tuple(v[idx] for v in batch.volumes),
+                     tuple(f[idx] for f in batch.use_flags),
+                     batch.labels[idx])
+    pb = PairBatch(side(perm[:60]), side(perm[60:]),
+                   (batch.labels[perm[:60]] == batch.labels[perm[60:]]).int())
+    pair_losses, pair_ms = [], []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, m = pstep(st, pb)
+        torch.cuda.synchronize()
+        pair_ms.append((time.perf_counter() - t0) * 1e3)
+        pair_losses.append(float(m["pair_loss"]))
+    check(all(np.isfinite(pair_losses)), f"pair losses {pair_losses}")
+    k1, k2 = pair_keys(st.step)
+    with torch.no_grad():
+        pe = [embed_pair_side(st.model, b, k)
+              for b, k in ((pb.batch1, k1), (pb.batch2, k2))]
+    vc, gcs = value_grad(lambda a, b, l: L.verif_pair_loss(a, b, l, 0.5),
+                         pe[0], pe[1], pb.pair_labels)
+    vp, gps = value_grad(lambda a, b, l: L.verif_pair_loss(a, b, l, 0.5),
+                         pe[0].cpu(), pe[1].cpu(), pb.pair_labels.cpu())
+    rel = abs(vc - vp) / abs(vp)
+    g_err = max(rel_err(a.cpu(), b) for a, b in zip(gcs, gps))
+    print(f"pair step, 2D CNN, 2 x 60 clips ({int(pb.pair_labels.sum())} "
+          f"same pairs), margin 0.5: losses {[round(v, 6) for v in pair_losses]}"
+          f", step ms {[round(t, 2) for t in pair_ms]}; loss on the card's "
+          f"embeddings card vs CPU rel {rel:.2e} <= {LOSS_RTOL}, gradient "
+          f"{g_err:.2e} <= {LOSS_GRAD_REL} [{card}]")
+    check(rel <= LOSS_RTOL and g_err <= LOSS_GRAD_REL, "pair loss card vs CPU")
+    out["pair_step"] = dict(losses=pair_losses, step_ms=pair_ms, rel=rel,
+                            grad_rel_err=g_err)
+    torch.backends.cudnn.deterministic = False
+    return out
 
 
 def main():
@@ -1831,19 +2262,6 @@ def main():
 
     dcfg = DataConfig()
     mods = (("of", "gray"), (2, 1), (100.0, 1.0), 2)
-
-    def raw_batch(b, ids, seed):
-        g = torch.Generator(device=dev).manual_seed(seed)
-        return {
-            "raw_of": torch.randint(-3000, 3000, (b, 50, 60, 60), device=dev,
-                                    generator=g, dtype=torch.int16),
-            "raw_gray": torch.randint(0, 255, (b, 25, 60, 60), device=dev,
-                                      generator=g, dtype=torch.uint8),
-            "present_of": torch.ones(b, device=dev),
-            "present_gray": torch.ones(b, device=dev),
-            "labels": torch.as_tensor(np.repeat(np.arange(ids), b // ids),
-                                      dtype=torch.int32, device=dev),
-        }
 
     # ---- 2. embed ------------------------------------------------------------
     raw = raw_batch(128, 1, seed=1)
@@ -2064,6 +2482,13 @@ def main():
               f"triplet launches in phase 9's steps: {conv_launches}")
     finally:
         shutil.rmtree(sets, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- 10. the rest of the model and loss surface -----------------------
+    surface_res = surface_phase(card, flag_t["fwd_call_ms"]
+                                + flag_t["bwd_call_ms"])
+    surface_launches = surface_res["launches"]
 
     # launches: the trainer's fit (this slice's main path); by path, phase
     # 3's train steps too
@@ -2074,7 +2499,9 @@ def main():
          "launches_by_path": {"train_step": launches["triplet_fwd"],
                               "fit": fit_launches["triplet_fwd"],
                               "conv_branch_steps":
-                                  conv_launches["triplet_fwd"]},
+                                  conv_launches["triplet_fwd"],
+                              "surface_steps":
+                                  surface_launches["triplet_fwd"]},
          "max_abs_err": fwd_err, "ms": flag_t["fwd_ms"],
          "plain_ms": flag_t["plain_fwd_ms"],
          "bound_ms": flag_t["fwd_bound"][0],
@@ -2085,7 +2512,9 @@ def main():
          "launches_by_path": {"train_step": launches["triplet_bwd"],
                               "fit": fit_launches["triplet_bwd"],
                               "conv_branch_steps":
-                                  conv_launches["triplet_bwd"]},
+                                  conv_launches["triplet_bwd"],
+                              "surface_steps":
+                                  surface_launches["triplet_bwd"]},
          "max_abs_err": bwd_err, "ms": flag_t["bwd_ms"],
          "plain_ms": flag_t["plain_bwd_ms"],
          "bound_ms": flag_t["bwd_bound"][0],
@@ -2108,7 +2537,7 @@ def main():
                                               "tf32_on": tf32_err},
                       "eval": eval_res, "serve": serve_res,
                       "trainer": trainer_res, "int8": int8_res,
-                      "branches": branch_res}))
+                      "branches": branch_res, "surface": surface_res}))
     print(f"wall time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -115,7 +115,7 @@ def test_evaluate_best_and_results_file(trained, tmp_path):
 @pytest.mark.parametrize("flags", [["--ndevices", "2"], ["--tp", "2"],
                                    ["--sp", "2"], ["--pp", "2"],
                                    ["--ep", "2"], ["--moe", "4"],
-                                   ["--remat"], ["--initnet", "x"],
+                                   ["--initnet", "x"],
                                    ["--initbranch", "of=x"],
                                    ["--datadir2", "x"]])
 def test_unported_train_flags_raise(tmp_path, flags):

@@ -285,12 +285,10 @@ def test_unported_options_raise():
     jcfg = graft._flagship_cfg(tiny=True)
     cfg = _tcfg(jcfg)
     import dataclasses
-    for bad in (dataclasses.replace(cfg, extra_dense=(8,)),
-                dataclasses.replace(cfg, aux_losses=True),
+    for bad in (dataclasses.replace(cfg, seq_axis="sp"),
                 dataclasses.replace(cfg, branches=(dataclasses.replace(
-                    cfg.branches[0], flatten_output=True),)
-                    + cfg.branches[1:])):
-        with pytest.raises(NotImplementedError):
+                    cfg.branches[0], moe_experts=4),) + cfg.branches[1:])):
+        with pytest.raises(NotImplementedError, match="item 12"):
             UGaitNet(bad, device="cpu")
     with pytest.raises(ValueError, match="unknown branch kind"):
         UGaitNet(dataclasses.replace(cfg, branches=(dataclasses.replace(

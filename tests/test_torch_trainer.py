@@ -14,9 +14,13 @@ Tolerances, with the values measured on this CPU (torch on one thread):
     (measured <= 7.8e-7 relative over 7 steps: float32 forwards and Adam
     updates of two frameworks round differently).
   * weights after the 7 steps: abs 1e-4 (measured 7.7e-6).
-  * unpatched JAX trainer, epoch 1: rtol 2e-3 on the losses (the diagonal
-    residue moves the triplet value; measured 2.0e-4 relative on the
-    triplet, 7.5e-5 on the loss).
+  * unpatched JAX trainer, epoch 1: |port - JAX as is| <= |JAX zeroed -
+    JAX as is| + RTOL |JAX as is| per loss, with both JAX runs made here.
+    The diagonal residue comes from the BLAS's summation order, not from
+    the inputs, so its effect differs between machines (2.54e-3 relative
+    on train/loss on one CPU, 7.5e-5 on another); the limit is that
+    effect on the machine that runs the test, never a constant from
+    another.
   * resume against an uninterrupted run: abs 1e-6, the JAX kill-and-resume
     test's limit (measured 0: the CPU replays the same arithmetic); each
     planted fault must exceed it.
@@ -58,7 +62,6 @@ torch.set_num_threads(1)
 
 RTOL = 1e-4
 WEIGHT_ATOL = 1e-4
-UNPATCHED_RTOL = 2e-3
 RESUME_ATOL = 1e-6
 VAL_PERC = 0.3
 
@@ -192,13 +195,20 @@ def test_projector_exports_match_jax(runs):
 
 
 def test_unpatched_reference_epoch(tmp_path, init_params_np, runs):
-    """The JAX trainer as it is (diagonal residue and all), one epoch."""
+    """The JAX trainer as it is (diagonal residue and all), one epoch.  The
+    limit is the residue's own effect in this run: the gap between the
+    JAX trainer with its diagonal zeroed (the module's run, epoch 1) and
+    as it is, plus RTOL.  The port must also sit within RTOL of the zeroed
+    run, the gap the residue explains."""
     jrec, _ = _jax_fit(str(tmp_path / "jax"), init_params_np, 1, 0,
                        patched=False)
     for key in ("train/loss", "train/triplet", "val/loss"):
-        want = _by_epoch(jrec, key)[1]
+        as_is = _by_epoch(jrec, key)[1]
+        zeroed = _by_epoch(runs["jrec"], key)[1]
         got = _by_epoch(runs["trec"], key)[1]
-        np.testing.assert_allclose(got, want, rtol=UNPATCHED_RTOL, err_msg=key)
+        np.testing.assert_allclose(got, zeroed, rtol=RTOL, err_msg=key)
+        limit = abs(zeroed - as_is) + RTOL * abs(as_is)
+        assert abs(got - as_is) <= limit, (key, got, as_is, zeroed)
 
 
 # --- controllers: plateau, best, early stop (epochs faked, both packages) --

@@ -28,7 +28,9 @@ from ugaitnet_tpu.ops.triplet import pairwise_dist as j_pairwise
 
 from ugaitnet_tpu_torch.ops.cuda import triplet_kernel as K
 from ugaitnet_tpu_torch.ops.triplet import (batch_all_triplet_loss,
-                                            make_triplet_loss, pairwise_dist)
+                                            hard_triplet_loss,
+                                            make_triplet_loss, pairwise_dist,
+                                            semi_hard_triplet_loss)
 
 torch.set_num_threads(1)
 
@@ -198,9 +200,10 @@ def test_kernel_wrapper_takes_plain_version_on_cpu():
         want = _torch_value_grad(emb, labels)
         assert got[0] == want[0] and np.array_equal(got[1], want[1])
     assert K.fwd_launches == 0 and K.bwd_launches == 0
-    for kind in ("semi_hard", "hard"):
-        with pytest.raises(NotImplementedError):
-            make_triplet_loss(kind)
+    for kind, fn in (("semi_hard", semi_hard_triplet_loss),
+                     ("hard", hard_triplet_loss)):
+        got = make_triplet_loss(kind, 0.2)
+        assert got.func is fn and got.keywords == {"margin": 0.2}
 
 
 def test_kernel_wrapper_validates_inputs():

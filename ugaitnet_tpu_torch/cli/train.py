@@ -2,7 +2,7 @@
 
 Port of ``ugaitnet_tpu/cli/train.py``: the same flags and the same
 ``configs_from_args``, plus ``--device`` (default ``cuda``; the CPU only
-when asked for).  The multi-device modes, MoE, remat, warm starts and joint
+when asked for).  The multi-device modes, MoE, warm starts and joint
 two-dataset training raise ``NotImplementedError`` naming their ROADMAP item.
 
 Examples:
@@ -15,6 +15,12 @@ Examples:
   # smoke run on synthetic data, on the CPU
   python -m ugaitnet_tpu_torch.cli.train --synthetic --epochs 2 --bs 8 \\
       --device cpu
+
+  # casenet C with the code as the triplet tap, aux heads, focal id loss,
+  # remat, semi-hard triplets
+  python -m ugaitnet_tpu_torch.cli.train --synthetic --epochs 1 --bs 8 \\
+      --casenet C --postriplet 2 --auxlosses --focal --remat \\
+      --tripletkind semi_hard --device cpu
 """
 
 from __future__ import annotations
@@ -98,7 +104,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="write checkpoints on a background thread (the "
                         "train loop waits only for the copy to the host)")
     p.add_argument("--remat", action="store_true",
-                   help="rematerialize branch activations (not ported yet)")
+                   help="recompute branch activations in the backward "
+                        "instead of holding them (torch.utils.checkpoint)")
     p.add_argument("--bf16", action="store_true",
                    help="bfloat16 compute (params stay fp32)")
     p.add_argument("--tensorboard", action="store_true")
@@ -183,10 +190,6 @@ def _refuse_unported(args) -> None:
         if getattr(args, flag):
             raise NotImplementedError(f"--{flag} is not ported yet "
                                       f"({ROADMAP_MULTI})")
-    if args.remat:
-        raise NotImplementedError(
-            "--remat is not ported yet (ROADMAP.md section 1, item 10: the "
-            "remaining model and loss surface)")
     if args.initnet or args.initbranch:
         raise NotImplementedError(
             "--initnet/--initbranch are not ported yet (ROADMAP.md section "

@@ -69,6 +69,29 @@ def he_uniform_(t: torch.Tensor, fan_in: int,
         return t.uniform_(-limit, limit, generator=generator)
 
 
+def draw_seed(generator: Optional[torch.Generator]) -> int:
+    """A dropout layer's seed, drawn from the model's generator."""
+    return int(torch.randint(0, 2 ** 62, (), generator=generator))
+
+
+def keyed_dropout(x: torch.Tensor, rate: float, seed: int,
+                  key: Optional[int]) -> torch.Tensor:
+    """flax's Dropout: keep with probability 1 - rate, kept values divided
+    by it.  The mask is a function of (the layer's seed, key) alone, drawn
+    from a generator of its own, so the global RNG is left as it is and a
+    recompute (remat) or a resumed run draws the same mask."""
+    if key is None:
+        raise ValueError("train-mode dropout needs a key (the train step "
+                         "passes its step count)")
+    if rate >= 1.0:
+        return torch.zeros_like(x)
+    gen = torch.Generator(device=x.device).manual_seed(
+        hash((seed, int(key))) % 2 ** 63)
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=gen, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
 class Conv(nn.Module):
     """VALID conv with bias over NCHW (2D) or NCDHW (3D); weight OIHW /
     OIDHW.  ``he``: he-uniform kernel (the ``code`` layer), else glorot."""
@@ -150,20 +173,10 @@ class Conv2DBranch(nn.Module):
         self.code = Dense(2 * ndense_units, ndense_units, dtype, generator,
                           he=True)
         # the dropout masks' seed, from the model's generator
-        self._drop_seed = int(torch.randint(
-            0, 2 ** 62, (), generator=generator))
+        self._drop_seed = draw_seed(generator)
 
     def _dropout(self, x: torch.Tensor, key: Optional[int]) -> torch.Tensor:
-        """flax's Dropout: keep with probability 1 - rate, kept values
-        divided by it; the mask is a function of (branch seed, key)."""
-        if key is None:
-            raise ValueError("train-mode dropout needs a key (the train "
-                             "step passes its step count)")
-        gen = torch.Generator(device=x.device).manual_seed(
-            hash((self._drop_seed, int(key))) % 2 ** 63)
-        keep = 1.0 - self.dropout
-        mask = torch.rand(x.shape, generator=gen, device=x.device) < keep
-        return torch.where(mask, x / keep, torch.zeros_like(x))
+        return keyed_dropout(x, self.dropout, self._drop_seed, key)
 
     def forward(self, x: torch.Tensor, train: bool = False,
                 key: Optional[int] = None) -> torch.Tensor:

@@ -89,8 +89,8 @@ class GaitSetBranch(nn.Module):
         super().__init__()
         if moe_experts > 0:
             raise NotImplementedError(
-                "the MoE part projection is not ported yet (ROADMAP.md, "
-                "'Multi-device and extras')")
+                "the MoE part projection is not ported yet (ROADMAP.md "
+                "section 1, item 12: multi-device and extras)")
         c1, c2, c3 = channels
         self.hpp_bins = tuple(hpp_bins)
         self.leaky_alpha = leaky_alpha

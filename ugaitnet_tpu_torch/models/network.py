@@ -1,10 +1,13 @@
 """UGaitNet: multimodal gated-fusion gait network.
 
-Port of ``ugaitnet_tpu/models/network.py``: GaitSet, 2D CNN and 3D CNN
-branches (``make_branch``), presence gating, the max / average / sign_max
-merge, the L2 signature, ``flatten`` and the softmax id head.  Forward taps
-are the JAX module's dict keys: ``branches``, ``fused``, ``signature``,
-``flatten``, ``classprob_logits`` and ``classprob``.
+Port of ``ugaitnet_tpu/models/network.py``: GaitSet (optionally flattened
+per sample, the BothDatasets head), 2D CNN and 3D CNN branches
+(``make_branch``), presence gating, the max / average / sign_max merge, the
+L2 signature, the extra dense "code" head (casenet C) with its dropout,
+the softmax id head and the per-branch aux heads, with remat of the
+branches.  Forward taps are the JAX module's dict keys: ``branches``,
+``fused``, ``signature``, ``code``, ``flatten``, ``classprob_logits``,
+``classprob`` and ``aux_logits``.
 """
 
 from __future__ import annotations
@@ -13,16 +16,18 @@ from typing import Dict, List, Optional, Sequence
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ugaitnet_tpu_torch.core.config import (NUM_FRAMES, BranchConfig,
                                             ModelConfig)
 from ugaitnet_tpu_torch.core.device import DeviceLike, resolve_device
-from ugaitnet_tpu_torch.models.branches import Conv2DBranch, Conv3DBranch
-from ugaitnet_tpu_torch.models.gaitset import GaitSetBranch, glorot_
+from ugaitnet_tpu_torch.models.branches import (Conv2DBranch, Conv3DBranch,
+                                                Dense, _act, draw_seed,
+                                                keyed_dropout)
+from ugaitnet_tpu_torch.models.gaitset import GaitSetBranch
 from ugaitnet_tpu_torch.ops import fusion as F
 from ugaitnet_tpu_torch.ops.preprocess import frames_to_planes
 
-_ROADMAP = "(ROADMAP.md, 'The remaining model and loss surface')"
 BRANCH_KINDS = ("gaitset", "conv2d", "conv3d")
 
 
@@ -65,24 +70,32 @@ def _check_supported(cfg: ModelConfig) -> None:
     for b in cfg.branches:
         if b.kind not in BRANCH_KINDS:
             raise ValueError(f"unknown branch kind: {b.kind}")
-        if b.kind == "gaitset" and b.flatten_output:
-            raise NotImplementedError(
-                f"gaitset flatten_output is not ported yet {_ROADMAP}")
-    for name in ("extra_dense", "aux_losses"):
-        if getattr(cfg, name):
-            raise NotImplementedError(f"{name} is not ported yet {_ROADMAP}")
-    if cfg.seq_axis or cfg.remat:
+    if cfg.seq_axis:
         raise NotImplementedError(
-            "seq_axis / remat are not ported yet (ROADMAP.md)")
+            "seq_axis is not ported yet (ROADMAP.md section 1, item 12: "
+            "multi-device and extras)")
+
+
+def branch_width(b: BranchConfig) -> int:
+    """Width of a branch's per-sample flattened embedding."""
+    if b.kind == "gaitset":
+        return b.num_parts * b.part_dim
+    return b.ndense_units
 
 
 def _head_forward(cfg: ModelConfig, embeddings: Sequence[torch.Tensor],
-                  use_flags: Sequence[torch.Tensor],
-                  classprob: Optional[nn.Linear]) -> Dict[str, object]:
-    """Gating, merge, signature and the id head."""
+                  use_flags: Sequence[torch.Tensor], net: "UGaitNet",
+                  train: bool = False, key: Optional[int] = None
+                  ) -> Dict[str, object]:
+    """Everything after the branches: gating, merge, signature, the extra
+    dense head, the id head and the aux heads, with ``net``'s layers.
+    ``key`` keys the dropcode mask in train mode."""
     batch = embeddings[0].shape[0]
     gated = []
-    for e, u in zip(embeddings, use_flags):
+    for e, u, bcfg in zip(embeddings, use_flags, cfg.branches):
+        if bcfg.kind == "gaitset" and bcfg.flatten_output:
+            # the BothDatasets variant: per-sample flatten + L2
+            e = F.l2_normalize(e.reshape(batch, -1), dim=-1)
         if cfg.norm_before_merge:
             e = F.l2_normalize(e, dim=-1)
         gated.append(F.gate(e, u))
@@ -96,24 +109,48 @@ def _head_forward(cfg: ModelConfig, embeddings: Sequence[torch.Tensor],
         fused = gated[0]
         sig = fused
 
-    out: Dict[str, object] = {"branches": gated, "fused": fused,
-                              "signature": sig}
-    flat = sig.reshape(batch, -1)
+    out: Dict[str, object] = {"branches": gated, "fused": fused}
+    head_in = sig
+    if cfg.extra_dense:
+        act = _act(cfg.branches[0].activation, cfg.branches[0].leaky_alpha)
+        if cfg.postriplet == 2:
+            # the Dense before the triplet tap: its per-row L2 is "code"
+            # and the signature
+            x = act(net.extra_dense(fused))
+            sig = F.l2_normalize(x, dim=-1)
+            out["code"] = sig
+        else:
+            x = act(net.extra_dense(sig))
+            out["code"] = x
+        head_in = x
+        if train and cfg.dropout_code > 0.0:
+            head_in = keyed_dropout(x, cfg.dropout_code, net.dropcode_seed,
+                                    key)
+
+    out["signature"] = sig
+    # the reference's Flatten (the typecode-3 tap) sits on the dropcode
+    # output when extra_dense is set, not on the signature
+    flat = head_in.reshape(batch, -1)
     out["flatten"] = flat
-    if classprob is not None:
-        dt = compute_dtype(cfg)
-        logits = torch.nn.functional.linear(
-            flat.to(dt), classprob.weight.to(dt), classprob.bias.to(dt))
-        logits = logits.to(torch.float32)
+
+    if net.classprob is not None:
+        logits = net.classprob(flat).to(torch.float32)
         out["classprob_logits"] = logits
         out["classprob"] = torch.softmax(logits, dim=-1)
+        if cfg.aux_losses:
+            out["aux_logits"] = [
+                getattr(net, f"classprob_{b.modality}")(
+                    g.reshape(batch, -1)).to(torch.float32)
+                for g, b in zip(gated, cfg.branches)]
     return out
 
 
 class UGaitNet(nn.Module):
     """Branch ``i`` reads ``volumes[i]`` (B, T, H, W, C_i); parameters are
     made from ``seed`` on the CPU and moved to ``device`` (CUDA unless the
-    caller passes ``device="cpu"``)."""
+    caller passes ``device="cpu"``).  Head layers: ``extra_dense``,
+    ``classprob`` and one ``classprob_<modality>`` per branch, named as
+    the JAX module's param subtrees."""
 
     def __init__(self, config: ModelConfig, device: DeviceLike = None,
                  seed: int = 0):
@@ -126,13 +163,21 @@ class UGaitNet(nn.Module):
         self.branches = nn.ModuleDict()
         for b in config.branches:
             self.branches[f"branch_{b.modality}"] = make_branch(b, dt, gen)
+        self.extra_dense = None
+        flat_dim = config.signature_dim
+        if config.extra_dense:
+            width = config.extra_dense[0]
+            self.extra_dense = Dense(config.signature_dim, width, dt, gen)
+            self.dropcode_seed = draw_seed(gen)
+            flat_dim = width
         self.classprob = None
         if config.nclasses > 0:
-            n_in = config.signature_parts * config.signature_dim
-            self.classprob = nn.Linear(n_in, config.nclasses)
-            glorot_(self.classprob.weight, n_in, config.nclasses, gen)
-            with torch.no_grad():
-                self.classprob.bias.zero_()
+            self.classprob = Dense(config.signature_parts * flat_dim,
+                                   config.nclasses, dt, gen)
+            if config.aux_losses:
+                for b in config.branches:
+                    setattr(self, f"classprob_{b.modality}",
+                            Dense(branch_width(b), config.nclasses, dt, gen))
         self.to(dev)
 
     @property
@@ -146,7 +191,14 @@ class UGaitNet(nn.Module):
         """use_flags[i]: (B,) presence flags (None => all present).
         train: dropout on (the JAX module's ``train``); None follows the
         module's training mode.  key: the dropout masks' key (the JAX
-        module's dropout rng), needed where a train-mode branch drops."""
+        module's dropout rng), needed where a train-mode layer drops.
+
+        With ``config.remat`` each branch runs under
+        ``torch.utils.checkpoint`` when gradients are taken: its
+        activations are recomputed in the backward instead of held.  Every
+        dropout mask is drawn from a generator of (layer seed, key), never
+        from the global RNG, so the recompute draws the same masks without
+        ``preserve_rng_state``."""
         cfg = self.config
         if train is None:
             train = self.training
@@ -155,8 +207,15 @@ class UGaitNet(nn.Module):
             use_flags = [torch.ones((batch,), dtype=torch.float32,
                                     device=volumes[0].device)
                          for _ in cfg.branches]
-        embeddings: List[torch.Tensor] = [
-            self.branches[f"branch_{b.modality}"](
-                branch_input(b, volumes[i]), train, key)
-            for i, b in enumerate(cfg.branches)]
-        return _head_forward(cfg, embeddings, use_flags, self.classprob)
+        remat = cfg.remat and train and torch.is_grad_enabled()
+        embeddings: List[torch.Tensor] = []
+        for i, b in enumerate(cfg.branches):
+            branch = self.branches[f"branch_{b.modality}"]
+            x = branch_input(b, volumes[i])
+            if remat:
+                embeddings.append(checkpoint(branch, x, train, key,
+                                             use_reentrant=False,
+                                             preserve_rng_state=False))
+            else:
+                embeddings.append(branch(x, train, key))
+        return _head_forward(cfg, embeddings, use_flags, self, train, key)

@@ -1,8 +1,15 @@
 """Training step: multi-loss objective and the optimizer menu.
 
-Port of ``ugaitnet_tpu/train/train_step.py`` for the flagship objective:
+Port of ``ugaitnet_tpu/train/train_step.py``:
 
-  loss = w_ver * triplet(signature) + w_id * CE(classprob_logits) + reg
+  loss = w_ver * triplet(signature)
+       + w_id  * CE(classprob_logits)   [label smoothing; or focal on
+                                         classprob]
+       + w_aux * CE(per-branch aux heads)
+       + reg (Keras kernel_regularizer terms)
+
+and the Siamese pair step on the verification loss
+(``make_pair_train_step``).
 
 Unlike the JAX step, which maps a state to a new one, the port updates the
 model's parameters and the optimizer's moments in place; ``TrainState``
@@ -235,11 +242,7 @@ def losses_from_outputs(out: Dict[str, object], model: UGaitNet,
                         batch: Batch, mcfg: ModelConfig, tcfg: TrainConfig
                         ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Loss assembly from forward outputs; metrics keys ``triplet``,
-    ``id_ce``, ``acc``, ``reg`` and ``loss``."""
-    if tcfg.use_focal or mcfg.aux_losses:
-        raise NotImplementedError(
-            "focal and aux losses are not ported yet (ROADMAP.md, 'The "
-            "remaining model and loss surface')")
+    ``id_ce``, ``acc``, ``aux_ce_<i>`` (aux heads), ``reg`` and ``loss``."""
     triplet_fn = make_triplet_loss(tcfg.triplet_kind, tcfg.margin)
     lw = list(tcfg.loss_weights)
     metrics: Dict[str, torch.Tensor] = {}
@@ -251,11 +254,25 @@ def losses_from_outputs(out: Dict[str, object], model: UGaitNet,
     if mcfg.nclasses > 0 and not tcfg.only_triplet:
         onehot = torch.nn.functional.one_hot(
             batch.labels.long(), mcfg.nclasses).to(torch.float32)
-        l_id = L.softmax_crossentropy_logits(
-            out["classprob_logits"], onehot, tcfg.label_smoothing)
+        if tcfg.use_focal:
+            # on the softmax probabilities, as the JAX step has it
+            l_id = L.sigmoid_focal_crossentropy(out["classprob"], onehot)
+        else:
+            l_id = L.softmax_crossentropy_logits(
+                out["classprob_logits"], onehot, tcfg.label_smoothing)
         metrics["id_ce"] = l_id
         metrics["acc"] = L.accuracy(out["classprob"], onehot)
         total = total + (lw[1] if len(lw) > 1 else 1.0) * l_id
+
+        if mcfg.aux_losses and "aux_logits" in out:
+            # pad the weights with the last value (mj_uwyhNets_ba.py:880-884)
+            while len(lw) < 2 + len(out["aux_logits"]):
+                lw.append(lw[-1])
+            for i, al in enumerate(out["aux_logits"]):
+                l_aux = L.softmax_crossentropy_logits(
+                    al, onehot, tcfg.label_smoothing)
+                metrics[f"aux_ce_{i}"] = l_aux
+                total = total + lw[2 + i] * l_aux
 
     reg = l2_regularization(model, mcfg)
     metrics["reg"] = reg
@@ -285,6 +302,50 @@ def make_train_step(mcfg: ModelConfig, tcfg: TrainConfig):
         state.optimizer.step()
         state.step += 1
         return state, {k: v.detach() for k, v in metrics.items()}
+    return step
+
+
+class PairBatch(NamedTuple):
+    """Two aligned sample batches and same / different labels (1 = the
+    same subject)."""
+    batch1: Batch
+    batch2: Batch
+    pair_labels: torch.Tensor
+
+
+def pair_keys(step: int) -> Tuple[int, int]:
+    """The two sides' dropout keys at a step count: distinct from each
+    other and from every other step's, as the JAX step splits
+    ``fold_in(key, step)`` in two."""
+    return 2 * step, 2 * step + 1
+
+
+def embed_pair_side(model: UGaitNet, batch: Batch, key: Optional[int]
+                    ) -> torch.Tensor:
+    """One side of the pair step: the per-sample flattened signature."""
+    sig = model(list(batch.volumes), list(batch.use_flags),
+                key=key)["signature"]
+    return sig.reshape(sig.shape[0], -1)
+
+
+def make_pair_train_step(tcfg: TrainConfig):
+    """step(state, pair) -> (state, metrics): Siamese verification training
+    (the reference's UWYHNet): both sides run through the SAME weights, and
+    ``verif_pair_loss`` at ``tcfg.margin`` pulls the signatures of same
+    pairs together and pushes different ones apart.  Metric
+    ``pair_loss``."""
+    def step(state: TrainState, pair: PairBatch):
+        state.model.train()
+        state.optimizer.zero_grad(set_to_none=True)
+        k1, k2 = pair_keys(state.step)
+        e1 = embed_pair_side(state.model, pair.batch1, k1)
+        e2 = embed_pair_side(state.model, pair.batch2, k2)
+        loss = L.verif_pair_loss(e1, e2, pair.pair_labels,
+                                 margin=tcfg.margin)
+        loss.backward()
+        state.optimizer.step()
+        state.step += 1
+        return state, {"pair_loss": loss.detach()}
     return step
 
 

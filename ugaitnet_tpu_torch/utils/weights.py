@@ -7,7 +7,7 @@ top-level ``"params"`` key):
                                      co) DHWIO, or (F, N) for a Dense
   params/branch_<m>/<layer>/bias     (co,) where the layer has one
   params/branch_<m>/part_proj        (P, C3, D), GaitSet only
-  params/classprob/{kernel (F, N), bias (N,)}
+  params/{classprob, classprob_<m>, extra_dense}/{kernel (F, N), bias (N,)}
 
 (layers: GaitSet ``a_conv1..6``, ``b_conv1..4``; 2D CNN ``conv0..3``,
 ``dense``, ``code``; 3D CNN ``conv0..5``, ``code``) and maps onto
@@ -16,7 +16,7 @@ top-level ``"params"`` key):
   branches.branch_<m>.<layer>.weight  OIHW, OIDHW, or (N, F)
   branches.branch_<m>.<layer>.bias    unchanged
   branches.branch_<m>.part_proj       (P, C3, D), unchanged
-  classprob.{weight (N, F), bias (N,)}
+  {classprob, classprob_<m>, extra_dense}.{weight (N, F), bias (N,)}
 
 Both directions are transposes only, so a round trip is bit-exact.
 
@@ -55,6 +55,12 @@ def _numpy(t: torch.Tensor) -> np.ndarray:
     return t.detach().cpu().numpy().copy()     # never alias live params
 
 
+def _is_head_dense(name: str) -> bool:
+    """The head's Dense layers: the id head, the aux heads, extra_dense."""
+    return name in ("classprob", "extra_dense") or name.startswith(
+        "classprob_")
+
+
 def flax_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
     """flax param tree (numpy leaves) -> UGaitNet state_dict."""
     tree = params["params"] if "params" in params else params
@@ -71,9 +77,9 @@ def flax_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
                     k.transpose(_TO_TORCH[k.ndim]))
                 if "bias" in leaf:
                     sd[f"{prefix}.{layer}.bias"] = _tensor(leaf["bias"])
-        elif name == "classprob":
-            sd["classprob.weight"] = _tensor(np.asarray(sub["kernel"]).T)
-            sd["classprob.bias"] = _tensor(sub["bias"])
+        elif _is_head_dense(name):
+            sd[f"{name}.weight"] = _tensor(np.asarray(sub["kernel"]).T)
+            sd[f"{name}.bias"] = _tensor(sub["bias"])
         else:
             raise NotImplementedError(
                 f"param subtree {name!r} has no counterpart in the port yet")
@@ -96,8 +102,8 @@ def state_dict_to_flax(state_dict: Mapping[str, torch.Tensor]) -> Dict:
                     np.ascontiguousarray(arr.transpose(_TO_FLAX[arr.ndim]))
             else:
                 branch.setdefault(parts[2], {})["bias"] = arr
-        elif parts[0] == "classprob":
-            head = tree.setdefault("classprob", {})
+        elif _is_head_dense(parts[0]):
+            head = tree.setdefault(parts[0], {})
             if parts[1] == "weight":
                 head["kernel"] = np.ascontiguousarray(arr.T)
             else:
