@@ -9,6 +9,8 @@ and runs, at the full width of the flagship (two GaitSet branches at
 channels (32, 64, 128), part_dim 256, 62 parts, sign_max merge, 74 classes):
 
   1. kernels vs plain: the CUDA batch-all triplet forward and backward
+     (the value against the plain reduction over the kernel's own dist, the
+     dist against the plain one, the gradient against the plain backward)
      against ``ops/triplet.py`` on the same CUDA tensors, at the flagship
      (62, 120, 256), small, ragged (D not a multiple of the kernels'
      chunks, B not of 4) and degenerate cases, B = 256 and B = 512, the
@@ -115,7 +117,24 @@ channels (32, 64, 128), part_dim 256, 62 parts, sign_max merge, 74 classes):
      gradient, near ties of the selecting kinds counted) and timed
      forward + backward; a flagship step with and without remat
      (gradients equal, peak memory and step ms); the Siamese pair step on
-     the 2D CNN net, 2 x 60 clips, margin 0.5.
+     the 2D CNN net, 2 x 60 clips, margin 0.5;
+ 11. joint training, warm starts and the sweep at the flagship's width, on
+     phase 7's CASIA-B-shaped set and a TUM-GAID-shaped one (150 subjects x
+     2 videos x 2 subsequences, gaits n / b / s): ``cli.train --datadir
+     --datadir2 --normstats`` for 2 epochs with 224 classes (the joint
+     set's labels, gaits, video ids and dataset_source against the +305 /
+     +3 rule; norm_stats.npz with one row per source; one raw batch of both
+     sources standardized card vs CPU within 1e-6, and not with the two
+     source rows swapped; exact triplet launches; finite losses); a
+     fine-tune on the CASIA-B-shaped set with ``--initnet <joint>
+     --initepoch best --nclasses 74`` (branches equal the joint best
+     bitwise, the 74-wide head the seed's init; the same command again
+     resumes from ckpt/1 bitwise without a warm start); ``--initbranch
+     gray=<joint>@of`` (the gray branch is the joint OF branch's where
+     shapes match, the OF branch untouched); ``cli.sweep`` over
+     lr=1e-4,5e-5 for 1 epoch each (each point's dir and its own records);
+     ``cli.evaluate`` and ``cli.export_model`` of the joint best with its
+     two-row standardization.
 
 Gradient limits scale with each case, and every run reads planted faults
 (a backward without the g^T term, with the negative role's sign flipped,
@@ -2103,6 +2122,366 @@ def surface_phase(card, kernel_ms):
     return out
 
 
+# phase 11: the standardized volumes of one raw joint batch, card vs CPU:
+# max |card - CPU| <= NORM_REL * max |CPU| (float64 x * scale - mean, then
+# a float32 divide, the same IEEE operations on both devices; the limit of
+# tests/test_torch_cuda.py's augmenting preprocess).  Every run also reads
+# the card with the two dataset-source rows swapped, which must lie above it.
+NORM_REL = 1e-6
+JOINT_EPOCHS = 2
+TUM_SHAPE = dict(num_subjects=150, videos_per_subject=2, subseqs_per_video=2,
+                 num_cams=1, template_seed=1, seed=8, name="tum_train")
+
+
+def joint_phase(card, work, casia_dir, gallery_dir, probe_dir, fit7_ms):
+    """11. Joint two-dataset training, warm starts, the sweep, and evaluate
+    and export of a two-source run, through the CLIs at the flagship's
+    width, in the directory ``work`` (which the caller removes)."""
+    from ugaitnet_tpu_torch.cli import evaluate as cli_eval
+    from ugaitnet_tpu_torch.cli import export_model as cli_export
+    from ugaitnet_tpu_torch.cli import sweep as cli_sweep
+    from ugaitnet_tpu_torch.cli import train as cli_train
+    from ugaitnet_tpu_torch.core import checkpoint as ckpt
+    from ugaitnet_tpu_torch.core.config import DataConfig
+    from ugaitnet_tpu_torch.data import pipeline as PL
+    from ugaitnet_tpu_torch.data.sampler import split_train_val_by_video
+    from ugaitnet_tpu_torch.data.schema import GaitDataset
+    from ugaitnet_tpu_torch.data.synthetic import make_synthetic_dataset
+    from ugaitnet_tpu_torch.eval.export import ExportedEncoder
+    from ugaitnet_tpu_torch.models.network import UGaitNet
+    from ugaitnet_tpu_torch.obsv.logger import read_metrics
+    from ugaitnet_tpu_torch.ops.cuda import triplet_kernel as K
+    from ugaitnet_tpu_torch.train import trainer as TR
+    out = {}
+    os.makedirs(work, exist_ok=True)
+
+    # ---- data: a TUM-GAID-shaped set beside phase 7's CASIA-B-shaped one --
+    t0 = time.perf_counter()
+    tum = make_synthetic_dataset(**TUM_SHAPE)
+    # TUM-GAID's walking conditions n / b / s over the two videos of each
+    # subject (the synthetic set cycles one fixed order per video)
+    tum.gaits = (((tum.labels - 1) + tum.video_ids % 2) % 3).astype(np.int32)
+    tum_dir = os.path.join(work, "tum_train")
+    tum.save(tum_dir)
+    casia = GaitDataset.load(casia_dir)
+    mb = {n: sum(s.volumes.nbytes for s in d.modalities.values()) / 1e6
+          for n, d in (("tum", tum), ("casia", casia))}
+    print(f"joint data: TUM-GAID-shaped {len(tum)} clips ({mb['tum']:.1f} MB"
+          f" raw) made and packed in {time.perf_counter() - t0:.1f} s; "
+          f"CASIA-B-shaped {len(casia)} clips ({mb['casia']:.1f} MB) from "
+          "phase 7")
+    out.update(clips={"tum": len(tum), "casia": len(casia)}, raw_mb=mb)
+
+    # ---- 1. the joint run --------------------------------------------------
+    got = {}
+
+    def capture_fit(fit):
+        def call(self, ds, **kw):
+            got["ds"], got["trainer"] = ds, self
+            return fit(self, ds, **kw)
+        return call
+
+    stats_s, epoch_s = [], []
+
+    def timed_epoch(run_epoch):
+        def call(self, *a):
+            t0 = time.perf_counter()
+            res = run_epoch(self, *a)
+            epoch_s.append(time.perf_counter() - t0)
+            return res
+        return call
+
+    n_cls = len(np.unique(tum.labels)) + len(np.unique(casia.labels))
+    torch.backends.cudnn.deterministic = True
+    joint_flags = FLAGSHIP_FLAGS + [
+        "--datadir", tum_dir, "--datadir2", casia_dir, "--normstats",
+        "--nclasses", str(n_cls), "--epochs", str(JOINT_EPOCHS),
+        "--experdir", os.path.join(work, "joint")]
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        with wrapped(TR.Trainer, "fit", capture_fit), \
+                wrapped(TR.Trainer, "_epoch", timed_epoch), \
+                wrapped(PL, "compute_normalization_stats",
+                        timed_calls(stats_s)):
+            exp_j = cli_train.main(joint_flags)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    joint_s = time.perf_counter() - t0
+    launches = {"triplet_fwd": K.fwd_launches, "triplet_bwd": K.bwd_launches}
+    ds = got["ds"]
+    n_t = len(tum)
+    want_cols = {
+        "labels": np.concatenate([tum.labels, casia.labels + 305]),
+        "gaits": np.concatenate([tum.gaits, casia.gaits + 3]),
+        "video_ids": np.concatenate(
+            [tum.video_ids, casia.video_ids + tum.video_ids.max() + 1]),
+        "dataset_source": np.repeat(np.int32([0, 1]),
+                                    [n_t, len(casia)])}
+    for k, v in want_cols.items():
+        check(np.array_equal(getattr(ds, k), v),
+              f"joint set's {k} differs from the +305 / +3 rule")
+    check(len(np.unique(ds.labels)) == n_cls == 224,
+          f"joint set's label count {n_cls}")
+    tr_idx, val_idx = split_train_val_by_video(ds.video_ids, perc=VAL_PERC,
+                                               seed=0)
+    steps = len(tr_idx) // 40
+    val_batches = -(-len(val_idx) // min(len(val_idx), 40))
+    want = {"triplet_fwd": JOINT_EPOCHS * (steps + val_batches),
+            "triplet_bwd": JOINT_EPOCHS * steps}
+    check(launches == want, f"joint run launches {launches}, expected "
+                            f"{want}")
+    losses = {k: epoch_losses(exp_j, k) for k in ("train/loss", "val/loss")}
+    for k, v in losses.items():
+        check(sorted(v) == list(range(1, JOINT_EPOCHS + 1)) and all(
+            x is not None and np.isfinite(x) for x in v.values()),
+            f"joint {k} per epoch: {v}")
+    z = np.load(os.path.join(exp_j, "norm_stats.npz"))
+    shapes = {k: z[k].shape for k in z.files}
+    check(shapes == {"mean_of": (2, 50), "std_of": (2, 50),
+                     "mean_gray": (2, 25), "std_gray": (2, 25)},
+          f"norm_stats.npz rows {shapes}")
+    fit_ms = [1e3 * t / steps for t in epoch_s]
+    out.update(launches=launches, steps_per_epoch=steps,
+               val_batches=val_batches, losses=losses, seconds=joint_s,
+               normstats_s=sum(stats_s), fit_ms_per_step=fit_ms)
+    print(f"joint run: cli.train --datadir2 --normstats, {len(ds)} clips, "
+          f"{n_cls} classes, {JOINT_EPOCHS} epochs of {steps} steps in "
+          f"{joint_s:.1f} s; labels, gaits, video ids and dataset_source "
+          f"equal the +305 / +3 rule; norm_stats.npz {shapes}; launches "
+          f"{launches} (= epochs x (steps + {val_batches} val batches), "
+          f"epochs x steps); train/loss {losses['train/loss']}, val/loss "
+          f"{losses['val/loss']} [{card}]")
+    print(f"joint fit ms per step by epoch {[round(t, 2) for t in fit_ms]} "
+          f"(epoch 1 includes cuDNN warm-up) beside phase 7's "
+          f"{fit7_ms:.2f} ms/step; two-source --normstats host time "
+          f"{sum(stats_s):.3f} s over {len(ds)} clips ({len(stats_s)} calls)"
+          f" [{card}]")
+
+    # one raw batch with both sources, standardized on the card and on the
+    # CPU, and on the card with the source rows swapped (a planted fault)
+    stats = got["trainer"].norm_stats
+    mods = tuple(MODS)
+    idx = np.concatenate([np.arange(0, 20), np.arange(n_t, n_t + 20)])
+    dcfg = DataConfig(augment=False)
+    labmap = ds.label_map()
+
+    def standardized(device, norm):
+        pipe = PL.GaitPipeline(ds, dcfg, mods, labmap=labmap, augment=False,
+                               norm_stats=norm, device=device)
+        vols, _, _ = pipe.preprocess(pipe.gather(idx), expand=1)
+        return [v.float().cpu() for v in vols]
+
+    swapped = {m: (s[0][::-1].copy(), s[1][::-1].copy())
+               for m, s in stats.items()}
+    on_cpu = standardized("cpu", stats)
+    norm_err = {m: rel_err(a, b) for m, a, b in
+                zip(mods, standardized("cuda", stats), on_cpu)}
+    swap_err = {m: rel_err(a, b) for m, a, b in
+                zip(mods, standardized("cuda", swapped), on_cpu)}
+    print(f"standardized joint batch (20 + 20 clips of the two sources), "
+          f"card vs CPU: {norm_err} <= {NORM_REL}; with the source rows "
+          f"swapped {swap_err} > {NORM_REL}")
+    check(all(v <= NORM_REL for v in norm_err.values()),
+          "standardized volumes, card vs CPU")
+    check(all(v > NORM_REL for v in swap_err.values()),
+          "swapped source rows pass the standardization limit")
+    out.update(norm_rel_err=norm_err, swapped_rows_rel_err=swap_err)
+    del got["ds"], got["trainer"], ds
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- 2. fine-tune on CASIA-B with --initnet, head surgery 224 -> 74 ---
+    inits, hook_ms = [], []
+
+    def capture_init(init_or_resume):
+        def call(self, seed=0):
+            state, start = init_or_resume(self, seed)
+            inits.append((start, {k: v.detach().cpu().clone() for k, v in
+                                  state.model.state_dict().items()},
+                          copy.deepcopy(state.optimizer.state_dict()),
+                          state.step))
+            return state, start
+        return call
+
+    def timed_hook(make):
+        def call(args, mcfg):
+            fn = make(args, mcfg)
+            if fn is None:
+                return None
+
+            def hook(sd):
+                t0 = time.perf_counter()
+                try:
+                    return fn(sd)
+                finally:
+                    hook_ms.append(1e3 * (time.perf_counter() - t0))
+            return hook
+        return call
+
+    ft_flags = FLAGSHIP_FLAGS + [
+        "--datadir", casia_dir, "--epochs", "1", "--initnet", exp_j,
+        "--initepoch", "best", "--experdir", os.path.join(work, "ft")]
+    K.reset_launch_counts()
+    with wrapped(TR.Trainer, "init_or_resume", capture_init), \
+            wrapped(cli_train, "make_warm_start", timed_hook):
+        exp_ft = cli_train.main(ft_flags)
+        ft_launches = (K.fwd_launches, K.bwd_launches)
+        exp_again = cli_train.main(ft_flags)
+    check(exp_again == exp_ft, "the fine-tune reran elsewhere")
+    src = ckpt.restore_raw(exp_j, "best")["model"]
+    start0, sd0, _, _ = inits[0]
+    fresh = UGaitNet(cli_train.configs_from_args(
+        cli_train.build_parser().parse_args(ft_flags))[0], seed=0,
+        device="cpu").state_dict()
+    branch = [k for k in sd0 if k.startswith("branches.")]
+    check(start0 == 0 and branch and all(torch.equal(sd0[k], src[k])
+                                         for k in branch),
+          "the warm-started branches differ from the joint run's best")
+    check(src["classprob.weight"].shape[0] == n_cls
+          and sd0["classprob.weight"].shape[0] == 74
+          and all(torch.equal(sd0[k], fresh[k])
+                  for k in ("classprob.weight", "classprob.bias")),
+          "the 74-wide head is not the seed's fresh init")
+    start1, sd1, opt1, step1 = inits[1]
+    saved = ckpt.restore_raw(exp_ft, 1)
+    a = flat_tensors({"m": sd1, "o": opt1})
+    b = flat_tensors({"m": saved["model"], "o": saved["optimizer"]})
+    check(start1 == 1 and len(hook_ms) == 1 and step1 == saved["step"]
+          and a.keys() == b.keys()
+          and all(torch.equal(a[k].cpu(), b[k].cpu()) for k in a),
+          "the rerun did not resume from ckpt/1 without a warm start")
+    ft_loss = epoch_losses(exp_ft)
+    check(list(ft_loss) == [1] and np.isfinite(ft_loss[1]),
+          f"fine-tune loss {ft_loss}")
+    print(f"fine-tune: --initnet <joint> --initepoch best --nclasses 74: "
+          f"{len(branch)} branch tensors equal the joint best bitwise, the "
+          f"74-wide head equals the seed's init; warm-start load "
+          f"{hook_ms[0]:.1f} ms; 1 epoch, train/loss {ft_loss[1]:.6f}, "
+          f"launches {ft_launches}; the same command again resumed at "
+          f"epoch {start1} with the state of ckpt/1 bitwise and no warm "
+          f"start [{card}]")
+    out.update(warm_start_ms=hook_ms[0], finetune_loss=ft_loss[1],
+               finetune_launches=ft_launches)
+
+    # --initbranch gray=<joint>@of: a start without training (0 epochs)
+    del inits[:]
+    ib_flags = FLAGSHIP_FLAGS + [
+        "--datadir", casia_dir, "--epochs", "0", "--initbranch",
+        f"gray={exp_j}@of", "--initepoch", "best",
+        "--experdir", os.path.join(work, "initbranch")]
+    with wrapped(TR.Trainer, "init_or_resume", capture_init):
+        cli_train.main(ib_flags)
+    _, sd2, _, _ = inits[0]
+    pre_of, pre_gray = "branches.branch_of.", "branches.branch_gray."
+    copied = kept = 0
+    for k, v in sd2.items():
+        if k.startswith(pre_gray):
+            s = src[pre_of + k[len(pre_gray):]]
+            if s.shape == v.shape:
+                check(torch.equal(v, s), f"{k} is not the OF branch's")
+                copied += 1
+            else:
+                check(torch.equal(v, fresh[k]), f"{k} is not the seed's")
+                kept += 1
+        elif k.startswith(pre_of):
+            check(torch.equal(v, fresh[k]), f"{k} was touched")
+    check(copied > 0 and kept == 1, f"gray from OF: {copied} copied, "
+                                    f"{kept} kept")
+    print(f"--initbranch gray=<joint>@of: {copied} gray tensors equal the "
+          f"joint OF branch bitwise, {kept} (the first conv, 1 vs 2 input "
+          "channels) keeps the seed's init; the OF branch is untouched")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- 3. the sweep ------------------------------------------------------
+    sweep_s = []
+
+    def timed_main(main):
+        def call(argv=None):
+            t0 = time.perf_counter()
+            try:
+                return main(argv)
+            finally:
+                sweep_s.append(time.perf_counter() - t0)
+        return call
+
+    sweep_root = os.path.join(work, "sweep")
+    with wrapped(cli_train, "main", timed_main), \
+            contextlib.redirect_stdout(io.StringIO()):
+        results = cli_sweep.main(
+            ["--grid", "lr=1e-4,5e-5", "--"] + FLAGSHIP_FLAGS
+            + ["--datadir", casia_dir, "--epochs", "1",
+               "--experdir", sweep_root])
+    check([r["point"] for r in results] == [{"lr": "1e-4"}, {"lr": "5e-5"}],
+          f"sweep points {[r['point'] for r in results]}")
+    for r in results:
+        own = {}
+        for rec in read_metrics(r["experdir"]):
+            own.update({k: v for k, v in rec.items()
+                        if k not in ("step", "time")})
+        check(os.path.dirname(r["experdir"]) == sweep_root
+              and os.path.basename(r["experdir"]).startswith(
+                  f"sweep_lr{r['point']['lr']}_")
+              and ckpt.latest_checkpoint_step(r["experdir"]) == 1
+              and r["final_metrics"] == own
+              and np.isfinite(own["train/loss"]),
+              f"sweep point {r['point']}: {r['experdir']}")
+    print(f"sweep lr=1e-4,5e-5 (1 epoch each): {[round(t, 1) for t in sweep_s]}"
+          f" s per point; final train/loss "
+          f"{[r['final_metrics']['train/loss'] for r in results]} from each "
+          f"point's own records [{card}]")
+    out.update(sweep_s=sweep_s)
+
+    # ---- 4. evaluate and export the joint run's best ----------------------
+    # phase 5's CASIA-B-shaped sets as the joint run's second source: each
+    # clip standardized by row 1
+    src_sets = {}
+    for name, d in (("gallery", gallery_dir), ("probe", probe_dir)):
+        s = GaitDataset.load(d)
+        s.dataset_source = np.ones(len(s), np.int32)
+        src_sets[name] = os.path.join(work, f"casia_{name}_src1")
+        s.save(src_sets[name])
+    outfile = os.path.join(work, "joint_results.json")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli_eval.main(["--experdir", exp_j, "--epoch", "best", "--gallery",
+                       src_sets["gallery"], "--probes", src_sets["probe"],
+                       "--protocol", "casiab", "--knn", "3", "--bs", "128",
+                       "--outfile", outfile])
+    check("using persisted norm_stats.npz" in buf.getvalue(),
+          "evaluate did not use the joint run's norm_stats.npz")
+    with open(outfile) as f:
+        res = json.load(f)[os.path.basename(src_sets["probe"])]
+    cams = {k: v for k, v in res.items() if k != "confusions_file"}
+    check(len(cams) == 11 and all(0.0 <= r["rank1_subseq"] <= 1.0
+                                  for r in cams.values()),
+          f"joint evaluate results for {sorted(cams)}")
+    art = os.path.join(work, "joint_art")
+    with contextlib.redirect_stdout(io.StringIO()):
+        cli_export.main(["--experdir", exp_j, "--epoch", "best", "--out",
+                         art, "--buckets", "8"])
+    with open(os.path.join(art, "meta.json")) as f:
+        meta = json.load(f)
+    check(meta["normalized"] and meta["norm_sources"] == 2,
+          f"export meta {meta}")
+    g = GaitDataset.load(src_sets["probe"])
+    raw = {f"raw_{m}": np.array(g.modalities[m].volumes[:8]) for m in mods}
+    raw.update({f"present_{m}": np.ones(8, np.float32) for m in mods})
+    enc = ExportedEncoder(art)
+    c1 = enc.encode(dict(raw, source=np.ones(8, np.int32)))
+    c0 = enc.encode(dict(raw, source=np.zeros(8, np.int32)))
+    check(np.isfinite(c1).all() and not np.allclose(c0, c1),
+          "the artifact does not select the stats row by source")
+    mean_r1 = float(np.mean([r["rank1_subseq"] for r in cams.values()]))
+    print(f"cli.evaluate on the joint best (2-row norm_stats.npz, source "
+          f"1): 11 probe cameras, mean Rank-1 subseq {mean_r1:.4f}; "
+          f"cli.export_model: norm_sources {meta['norm_sources']}, codes "
+          "differ by source row")
+    out.update(evaluate_mean_rank1_subseq=mean_r1, export_meta=meta)
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device")
@@ -2226,15 +2605,23 @@ def main():
         x, lab, vp, vk, gk, gp = case(parts, b, d, labels)
         rel = abs(vk - vp) / abs(vp)
         gerr = rel_err(gk, gp)
-        dist_err[name] = exact_checks(x, lab)[1]
-        print(f"kernel vs plain {name} {tuple(x.shape)}: value {vk:.7f} vs "
-              f"{vp:.7f} (rel {rel:.2e}, tol {VAL_RTOL}); grad max abs err "
-              f"{float((gk - gp).abs().max()):.2e}, max |grad| "
+        kdist, dist_err[name] = exact_checks(x, lab)
+        # the value against the plain reduction over the kernel's own dist
+        # (as phase 7 holds validation's): a triplet whose hinge lies within
+        # rounding of 0 may count in one dist and not in the other, which
+        # moves the plain value by ~1e-5 on some draws; the dist itself is
+        # held to the plain one just below
+        v_own = value_over_dist(kdist, lab, 0.2)
+        own_rel = abs(vk - v_own) / abs(v_own) if v_own else abs(vk)
+        print(f"kernel vs plain {name} {tuple(x.shape)}: value {vk:.7f}, "
+              f"plain over the kernel's dist {v_own:.7f} (rel {own_rel:.2e},"
+              f" tol {VAL_RTOL}), plain {vp:.7f} (rel {rel:.2e}); grad max "
+              f"abs err {float((gk - gp).abs().max()):.2e}, max |grad| "
               f"{float(gp.abs().max()):.2e}; dist symmetric, zero diagonal, "
               f"counts and g exact; dist vs plain {dist_err[name]:.2e} "
               f"(limit {DIST_REL})")
         check(dist_err[name] <= DIST_REL, f"{name}: dist vs plain")
-        results[name] = (vp, rel, gerr, fault_readings(x, lab, gp))
+        results[name] = (vp, own_rel, gerr, fault_readings(x, lab, gp))
         if name == "flagship":
             fwd_err = abs(vk - vp)
             bwd_err = float((gk - gp).abs().max())
@@ -2242,8 +2629,8 @@ def main():
             times[name] = kernel_times(x, lab)
     print(f"gradient max |kernel - plain| / max |plain| (limit {GRAD_REL}), "
           "and what planted faults read:")
-    for name, (vp, rel, gerr, faults) in results.items():
-        check(vp > 0 and rel <= VAL_RTOL, f"{name}: value")
+    for name, (vp, own_rel, gerr, faults) in results.items():
+        check(vp > 0 and own_rel <= VAL_RTOL, f"{name}: value")
         check_faults(name, gerr, faults)
     for name, labels in (("all-same", np.zeros(6)), ("all-distinct",
                                                      np.arange(6))):
@@ -2480,15 +2867,29 @@ def main():
         check(conv_launches == {"triplet_fwd": 2 * BRANCH_STEPS,
                                 "triplet_bwd": 2 * BRANCH_STEPS},
               f"triplet launches in phase 9's steps: {conv_launches}")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # ---- 10. the rest of the model and loss surface -------------------
+        surface_res = surface_phase(card, flag_t["fwd_call_ms"]
+                                    + flag_t["bwd_call_ms"])
+        surface_launches = surface_res["launches"]
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # ---- 11. joint training, warm starts, the sweep (last, so the
+        # draws of phases 1-10 do not move) ----------------------------
+        t0 = time.perf_counter()
+        joint_res = joint_phase(
+            card, os.path.join(sets, "joint"),
+            os.path.join(sets, "train", "casia_train"), gallery_dir,
+            probe_dir, trainer_res["fit_ms_per_step_steady"])
+        joint_res["phase_s"] = time.perf_counter() - t0
+        joint_launches = joint_res["launches"]
+        print(f"phase 11: {joint_res['phase_s']:.1f} s; triplet launches in "
+              f"the joint run {joint_launches} [{card}]")
     finally:
         shutil.rmtree(sets, ignore_errors=True)
-    gc.collect()
-    torch.cuda.empty_cache()
-
-    # ---- 10. the rest of the model and loss surface -----------------------
-    surface_res = surface_phase(card, flag_t["fwd_call_ms"]
-                                + flag_t["bwd_call_ms"])
-    surface_launches = surface_res["launches"]
 
     # launches: the trainer's fit (this slice's main path); by path, phase
     # 3's train steps too
@@ -2501,7 +2902,8 @@ def main():
                               "conv_branch_steps":
                                   conv_launches["triplet_fwd"],
                               "surface_steps":
-                                  surface_launches["triplet_fwd"]},
+                                  surface_launches["triplet_fwd"],
+                              "joint_fit": joint_launches["triplet_fwd"]},
          "max_abs_err": fwd_err, "ms": flag_t["fwd_ms"],
          "plain_ms": flag_t["plain_fwd_ms"],
          "bound_ms": flag_t["fwd_bound"][0],
@@ -2514,7 +2916,8 @@ def main():
                               "conv_branch_steps":
                                   conv_launches["triplet_bwd"],
                               "surface_steps":
-                                  surface_launches["triplet_bwd"]},
+                                  surface_launches["triplet_bwd"],
+                              "joint_fit": joint_launches["triplet_bwd"]},
          "max_abs_err": bwd_err, "ms": flag_t["bwd_ms"],
          "plain_ms": flag_t["plain_bwd_ms"],
          "bound_ms": flag_t["bwd_bound"][0],
@@ -2537,7 +2940,8 @@ def main():
                                               "tf32_on": tf32_err},
                       "eval": eval_res, "serve": serve_res,
                       "trainer": trainer_res, "int8": int8_res,
-                      "branches": branch_res, "surface": surface_res}))
+                      "branches": branch_res, "surface": surface_res,
+                      "joint": joint_res}))
     print(f"wall time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

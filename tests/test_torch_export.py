@@ -189,6 +189,21 @@ def test_export_cli_matches_jax_exported_encoder(tmp_path, data):
     got = ExportedEncoder(out, device="cpu").encode(raw)
     assert got.shape == want.shape == (6, 62 * 8)
     np.testing.assert_allclose(got, want, rtol=FWD_RTOL, atol=FWD_ATOL)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        export_model.main(["--experdir", exp, "--out", out, "--device",
-                           "cpu", "--keras-h5", "x.h5"])
+    # --keras-h5 writes the checkpoint into a Keras template's layout; the
+    # JAX package's importer reads the same weights back
+    sys.path.insert(0, os.path.dirname(__file__))
+    from test_warm_start import _write_fake_gaitset_h5
+    from ugaitnet_tpu.utils.keras_import import load_keras_weights
+    template, h5 = str(tmp_path / "template.h5"), str(tmp_path / "ours.h5")
+    _write_fake_gaitset_h5(template, 2, [2, 1], nclasses=4)
+    export_model.main(["--experdir", exp, "--epoch", "1", "--out", out,
+                       "--buckets", "4", "--device", "cpu", "--keras-h5", h5,
+                       "--keras-template", template])
+    want = state_dict_to_flax(ckpt.restore_raw(exp, 1)["model"])
+    back = load_keras_weights(h5, jax.tree_util.tree_map(np.zeros_like,
+                                                         want))
+    assert jax.tree_util.tree_structure(back) == \
+        jax.tree_util.tree_structure(want)
+    for a, b in zip(jax.tree_util.tree_leaves(back),
+                    jax.tree_util.tree_leaves(want)):
+        assert np.array_equal(np.asarray(a), b)

@@ -319,7 +319,12 @@ BANNED = {"jax", "flax", "optax", "orbax", "ugaitnet_tpu"}
 TRAINER_SLICE = ("train/schedule.py", "train/trainer.py", "obsv/logger.py",
                  "utils/net_utils.py", "data/native.py", "core/checkpoint.py",
                  "cli/train.py", "cli/evaluate.py", "models/branches.py",
-                 "ops/quantize.py", "eval/export.py", "cli/export_model.py")
+                 "ops/quantize.py", "eval/export.py", "cli/export_model.py",
+                 "data/partitions.py", "data/convert.py", "data/builders.py",
+                 "data/tfrecord.py", "data/dataset_info.py",
+                 "utils/warm_start.py", "utils/keras_import.py",
+                 "utils/keras_export.py", "cli/build_data.py",
+                 "cli/sweep.py")
 
 
 def _port_sources():

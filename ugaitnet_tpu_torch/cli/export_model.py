@@ -13,6 +13,11 @@ signature encoder per batch bucket (``eval/export.py``), and writes a
 directory that a serving process loads with ``ExportedEncoder(path)``:
 no model code, checkpoint plumbing or retracing.  Export on the device type
 you will serve on (the artifact is bound to it).
+
+``--keras-h5 OUT --keras-template TEMPLATE`` also writes the checkpoint as
+a reference-layout Keras h5 over a copy of TEMPLATE, an h5 that the
+reference architecture's save_weights wrote (``utils/keras_export.py``;
+needs h5py).
 """
 
 from __future__ import annotations
@@ -39,8 +44,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--warmup", action="store_true",
                    help="load the artifact back and run every bucket once")
     p.add_argument("--keras-h5", type=str, default="",
-                   help="also write a reference-layout Keras h5 (not "
-                        "ported yet)")
+                   help="ALSO write the checkpoint as a reference-layout "
+                        "Keras h5 weights file at this path (loadable by "
+                        "the original repo's mains) — requires "
+                        "--keras-template")
+    p.add_argument("--keras-template", type=str, default="",
+                   help="an h5 produced by the reference architecture's "
+                        "save_weights (e.g. any of its per-epoch "
+                        "checkpoints); layer names/counters are copied "
+                        "from it (utils/keras_export.py)")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device to export for (default the CUDA "
                         "card; 'cpu' only when asked for)")
@@ -49,10 +61,10 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if args.keras_h5:
-        raise NotImplementedError(
-            "--keras-h5 is not ported yet (ROADMAP.md section 1, item 12: "
-            "utils/keras_export.py)")
+    if args.keras_h5 and not args.keras_template:
+        raise SystemExit("--keras-h5 needs --keras-template (an h5 saved by "
+                         "the reference build — its layer names carry "
+                         "process-global counters we cannot synthesize)")
     from ugaitnet_tpu_torch.cli.evaluate import load_experiment
     from ugaitnet_tpu_torch.data.pipeline import load_norm_stats
     from ugaitnet_tpu_torch.eval.export import ExportedEncoder, export_encoder
@@ -61,6 +73,13 @@ def main(argv=None):
     model, _, mcfg, step = load_experiment(args.experdir, args.epoch,
                                            device=args.device)
     modalities = tuple(b.modality for b in mcfg.branches)
+    if args.keras_h5:
+        from ugaitnet_tpu_torch.utils.keras_export import export_keras_weights
+        from ugaitnet_tpu_torch.utils.weights import state_dict_to_flax
+        export_keras_weights(state_dict_to_flax(model.state_dict()),
+                             args.keras_h5, args.keras_template)
+        print(f"* wrote reference-layout Keras weights -> {args.keras_h5}",
+              flush=True)
     # a model trained with --normstats needs its standardization baked in
     norm_stats = load_norm_stats(args.experdir, modalities)
     if norm_stats is not None:

@@ -2,8 +2,8 @@
 
 Port of ``ugaitnet_tpu/cli/train.py``: the same flags and the same
 ``configs_from_args``, plus ``--device`` (default ``cuda``; the CPU only
-when asked for).  The multi-device modes, MoE, warm starts and joint
-two-dataset training raise ``NotImplementedError`` naming their ROADMAP item.
+when asked for).  The multi-device modes and MoE raise
+``NotImplementedError`` naming their ROADMAP item.
 
 Examples:
   # flagship CASIA-B 2-mod config (gaitset + sign_max)
@@ -21,6 +21,15 @@ Examples:
   python -m ugaitnet_tpu_torch.cli.train --synthetic --epochs 1 --bs 8 \\
       --casenet C --postriplet 2 --auxlosses --focal --remat \\
       --tripletkind semi_hard --device cpu
+
+  # joint TUM-GAID + CASIA-B (BothDatasets) with per-source standardization,
+  # then a fine-tune on CASIA-B from its best checkpoint (head surgery)
+  python -m ugaitnet_tpu_torch.cli.train --datadir /data/tum_packed \\
+      --datadir2 /data/casiab_packed --normstats --nclasses 224 \\
+      --experdir /exp/joint
+  python -m ugaitnet_tpu_torch.cli.train --datadir /data/casiab_packed \\
+      --nclasses 74 --initnet /exp/joint/<run> --initepoch best \\
+      --experdir /exp/ft
 """
 
 from __future__ import annotations
@@ -37,10 +46,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="packed GaitDataset directory (data/schema.py)")
     p.add_argument("--datadir2", type=str, default="",
                    help="second packed dataset for joint (BothDatasets) "
-                        "training: labels +305, gaits +3 (not ported yet)")
+                        "training: labels +305, gaits +3")
     p.add_argument("--normstats", action="store_true",
-                   help="plane-wise mean/std standardization of the "
-                        "training set")
+                   help="per-dataset plane-wise mean/std standardization "
+                        "(BothDatasets normalize_paths equivalent)")
     p.add_argument("--synthetic", action="store_true",
                    help="train on the synthetic in-memory dataset")
     p.add_argument("--experdir", type=str, default="./experiments")
@@ -111,12 +120,18 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--tensorboard", action="store_true")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--initnet", type=str, default="",
-                   help="warm-start the whole net from a prior experiment "
-                        "(not ported yet)")
+                   help="warm-start the WHOLE net from a prior experiment "
+                        "dir (or Keras h5); classifier head kept fresh when "
+                        "nclasses differs (reference --initnet)")
     p.add_argument("--initbranch", type=str, action="append", default=[],
-                   help="per-branch warm start (not ported yet)")
+                   help="per-branch warm start: mod=path, mod=path@srcmod "
+                        "or mod=path@<branch index> (repeatable). "
+                        "mod=path@of reproduces the reference's "
+                        "gray-from-OF gaitset init quirk "
+                        "(mj_uwyhNets_ba.py:765)")
     p.add_argument("--initepoch", type=str, default="-1",
-                   help="checkpoint epoch for --initnet/--initbranch")
+                   help="checkpoint epoch for --initnet/--initbranch "
+                        "(-1 latest, or 'best')")
     p.add_argument("--gschannels", type=str, default="",
                    help="gaitset stage widths 'c1,c2,c3' (default 32,64,128;"
                         " smaller for smoke runs / sweeps)")
@@ -190,14 +205,32 @@ def _refuse_unported(args) -> None:
         if getattr(args, flag):
             raise NotImplementedError(f"--{flag} is not ported yet "
                                       f"({ROADMAP_MULTI})")
-    if args.initnet or args.initbranch:
-        raise NotImplementedError(
-            "--initnet/--initbranch are not ported yet (ROADMAP.md section "
-            "1, item 12: utils/warm_start.py)")
-    if args.datadir2:
-        raise NotImplementedError(
-            "--datadir2 is not ported yet (ROADMAP.md section 1, item 11: "
-            "it needs data/{convert,partitions}.py)")
+
+
+def make_warm_start(args, mcfg):
+    """The Trainer's warm_start hook for --initnet / --initbranch (None
+    without them): the model's state_dict goes through the flax-layout tree
+    (utils/weights.py), the JAX package's warm start runs on it, and the
+    result comes back as a state_dict."""
+    if not (args.initnet or args.initbranch):
+        return None
+    from ugaitnet_tpu_torch.utils.warm_start import (
+        parse_initbranch_specs, warm_start_branches, warm_start_full)
+    from ugaitnet_tpu_torch.utils.weights import (flax_to_state_dict,
+                                                  state_dict_to_flax)
+    epoch = args.initepoch if args.initepoch == "best" \
+        else int(args.initepoch)
+    specs = parse_initbranch_specs(args.initbranch,
+                                   tuple(b.modality for b in mcfg.branches))
+
+    def warm_start(state_dict):
+        params = state_dict_to_flax(state_dict)
+        if args.initnet:
+            params = warm_start_full(params, args.initnet, epoch)
+        if specs:
+            params = warm_start_branches(params, specs, epoch)
+        return flax_to_state_dict(params)
+    return warm_start
 
 
 def main(argv=None):
@@ -222,6 +255,9 @@ def main(argv=None):
         if not args.datadir:
             raise SystemExit("--datadir or --synthetic required")
         ds = GaitDataset.load(args.datadir)
+        if args.datadir2:
+            from ugaitnet_tpu_torch.data.convert import combine_datasets
+            ds = combine_datasets(ds, GaitDataset.load(args.datadir2))
 
     experdir = os.path.join(
         args.experdir, experiment_name(mcfg, dcfg, tcfg, args.experfix))
@@ -229,16 +265,24 @@ def main(argv=None):
 
     norm_stats = None
     if args.normstats:
+        import numpy as np
         from ugaitnet_tpu_torch.data.pipeline import \
             compute_normalization_stats
+        # one (mean, std) row per dataset source, stacked to (S, T*C)
+        src = getattr(ds, "dataset_source", None)
+        sources = ((src == 0, src == 1) if src is not None else (None,))
         norm_stats = {}
         for b in mcfg.branches:
-            mean, std = compute_normalization_stats(ds, b.modality)
-            norm_stats[b.modality] = (mean[None], std[None])
+            stats = [compute_normalization_stats(ds, b.modality, sel)
+                     for sel in sources]
+            norm_stats[b.modality] = (np.stack([s[0] for s in stats]),
+                                      np.stack([s[1] for s in stats]))
 
     trainer = Trainer(mcfg, dcfg, tcfg, experdir,
                       use_tensorboard=args.tensorboard,
-                      norm_stats=norm_stats, device=args.device)
+                      norm_stats=norm_stats,
+                      warm_start=make_warm_start(args, mcfg),
+                      device=args.device)
     trainer.fit(ds, val_perc=args.valperc, seed=args.seed)
     print("* training done", flush=True)
     return experdir

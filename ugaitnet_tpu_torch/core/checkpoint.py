@@ -26,6 +26,7 @@ import re
 import tempfile
 from typing import Any, Dict, Optional
 
+import numpy as np
 import torch
 
 STATE_FILE = "state.pt"
@@ -197,7 +198,10 @@ def restore_params_surgery(experdir: str, step, target_params: Dict
 def merge_matching(target: Any, source: Any) -> Any:
     """Walk two nested trees (dicts, lists, tuples) by key, taking source
     leaves wherever the shapes match and keeping target's elsewhere (the
-    Keras load_weights(by_name=True, skip_mismatch=True) semantics)."""
+    Keras load_weights(by_name=True, skip_mismatch=True) semantics).  Leaves
+    are torch tensors (state dicts) or numpy arrays (the flax-layout trees
+    of ``utils/warm_start.py``); a taken leaf is a copy in the target's
+    dtype (and device)."""
     if isinstance(target, dict):
         return {k: (merge_matching(v, source.get(k))
                     if isinstance(source, dict) else v)
@@ -207,7 +211,14 @@ def merge_matching(target: Any, source: Any) -> Any:
             return type(target)(merge_matching(t, s)
                                 for t, s in zip(target, source))
         return target
-    if source is None or not isinstance(target, torch.Tensor):
+    if source is None:
+        return target
+    if isinstance(target, np.ndarray):      # flax-layout trees (warm start)
+        source = (source.detach().cpu().numpy()
+                  if isinstance(source, torch.Tensor) else np.asarray(source))
+        return (source.astype(target.dtype) if source.shape == target.shape
+                else target)
+    if not isinstance(target, torch.Tensor):
         return target
     source = torch.as_tensor(source)
     if source.shape == target.shape:

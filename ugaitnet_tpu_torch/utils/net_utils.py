@@ -1,8 +1,19 @@
-"""Filter and sprite image export.
+"""Network utilities: freezing, soft labels, filter/sprite image export.
 
-Port of the image half of ``ugaitnet_tpu/utils/net_utils.py`` (the
-reference's mj_save_filters / mj_save_sprite).  The freezing and soft-label
-helpers of that module are not ported yet (ROADMAP.md section 1, item 12).
+Port of ``ugaitnet_tpu/utils/net_utils.py`` (the reference's
+nets/mj_utils.py):
+
+  mj_freezeModel (:13-26)      -> freeze_mask + frozen_optimizer
+  mj_softlabel (:238-248)      -> soft_labels
+  mj_save_filters/3d (:134-235)-> save_filter_grid
+  mj_save_sprite (:95-131)     -> save_sprite
+
+Freezing is in torch idiom: the predicate sees each parameter's path in the
+JAX package's flax tree ('params/branch_of/a_conv1/kernel', from
+``utils/weights.py:flax_path``), so the JAX predicates carry over, and
+``frozen_optimizer`` builds the optimizer over the trainable parameters
+only.  A frozen parameter then gets no update and keeps no optimizer state,
+which is what ``optax.multi_transform`` with ``set_to_zero`` gives.
 
 ``save_filter_grid`` takes the port's conv weight, ``(cout, cin, kh, kw)``
 (OIHW) or ``(cout, cin, kt, kh, kw)``, and draws the same grid as the JAX
@@ -14,9 +25,54 @@ from __future__ import annotations
 
 import math
 import os
-from typing import Sequence
+from typing import Callable, Dict, Iterable, Sequence
 
 import numpy as np
+import torch
+
+from ugaitnet_tpu_torch.utils.weights import flax_path
+
+
+def freeze_mask(model: torch.nn.Module, predicate: Callable[[str], bool]
+                ) -> Dict[str, str]:
+    """{parameter name: 'frozen' where predicate(path) is True, else
+    'trainable'}; predicate receives the parameter's '/'-joined flax path,
+    like 'params/branch_of/a_conv1/kernel'."""
+    return {name: "frozen" if predicate(flax_path(name)) else "trainable"
+            for name, _ in model.named_parameters()}
+
+
+def frozen_optimizer(
+        tx: Callable[[Iterable[torch.nn.Parameter]], torch.optim.Optimizer],
+        model: torch.nn.Module, predicate: Callable[[str], bool]
+) -> torch.optim.Optimizer:
+    """The optimizer ``tx(params)`` makes (e.g.
+    ``functools.partial(make_optimizer, tcfg)``) over the parameters that
+    ``predicate`` leaves trainable: the ones it matches get no update and
+    no optimizer state (freeze_convs / freeze_all parity,
+    nets/mj_uwyhNets_ba.py:635-660)."""
+    labels = freeze_mask(model, predicate)
+    return tx([p for name, p in model.named_parameters()
+               if labels[name] == "trainable"])
+
+
+def freeze_convs_predicate(path: str) -> bool:
+    return "conv" in path.lower()
+
+
+def freeze_branches_predicate(path: str) -> bool:
+    return "branch_" in path
+
+
+def soft_labels(labels: Sequence[int], nclasses: int,
+                epsilon: float = 0.1) -> np.ndarray:
+    """mj_softlabel parity: target class gets 1 - eps*(C-1)/C, others eps/C."""
+    labels = np.asarray(labels, int)
+    the_class = 1.0 - epsilon * (nclasses - 1) / nclasses
+    others = epsilon / nclasses
+    out = np.full((len(labels), nclasses), others, np.float32)
+    out[np.arange(len(labels)), labels] = the_class
+    return out
 
 
 def _to_grid(images: Sequence[np.ndarray], pad: int = 1) -> np.ndarray:

@@ -61,6 +61,18 @@ def _is_head_dense(name: str) -> bool:
         "classprob_")
 
 
+def flax_path(key: str) -> str:
+    """The '/'-joined flax path of a UGaitNet state_dict key:
+    'branches.branch_of.a_conv1.weight' -> 'params/branch_of/a_conv1/kernel',
+    'classprob.bias' -> 'params/classprob/bias'."""
+    parts = key.split(".")
+    if parts[0] == "branches":
+        parts = parts[1:]
+    if parts[-1] == "weight":
+        parts[-1] = "kernel"
+    return "/".join(["params"] + parts)
+
+
 def flax_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
     """flax param tree (numpy leaves) -> UGaitNet state_dict."""
     tree = params["params"] if "params" in params else params
@@ -82,7 +94,8 @@ def flax_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
             sd[f"{name}.bias"] = _tensor(sub["bias"])
         else:
             raise NotImplementedError(
-                f"param subtree {name!r} has no counterpart in the port yet")
+                f"param subtree {name!r} has no counterpart in the port yet "
+                "(ROADMAP.md section 1, item 12)")
     return sd
 
 
@@ -109,8 +122,9 @@ def state_dict_to_flax(state_dict: Mapping[str, torch.Tensor]) -> Dict:
             else:
                 head["bias"] = arr
         else:
-            raise NotImplementedError(f"state_dict key {key!r} has no flax "
-                                      "counterpart")
+            raise NotImplementedError(
+                f"state_dict key {key!r} has no flax counterpart yet "
+                "(ROADMAP.md section 1, item 12)")
     return {"params": tree}
 
 
