@@ -135,6 +135,26 @@ channels (32, 64, 128), part_dim 256, 62 parts, sign_max merge, 74 classes):
      lr=1e-4,5e-5 for 1 epoch each (each point's dir and its own records);
      ``cli.evaluate`` and ``cli.export_model`` of the joint best with its
      two-row standardization.
+ 12. multi-device training over torch.distributed (last): the global
+     data-parallel form on a gloo world of 2 ranks sharing the card (asked
+     for by an explicit device list), the flagship at B = 120 (60 rows per
+     rank) from phase 3's first augmented batch and seed-0 state: losses
+     within 1e-5 of the one-process step, the averaged gradient within
+     1e-2 of its max (three planted faults must fail: the gather without
+     autograd, the local L2 inside the global form, no world factor) and
+     within 1e-4 of the one-process step made to take the ranks' sign_max
+     picks (the gap's cause: a pick at a near tie, counted; the step fed
+     the ranks' signatures and the hinges that change side read too), the
+     ranks' parameters bitwise equal after 3 Adam steps, exactly 1 + 1
+     triplet launches per rank per step at (62, 120, 256), step ms and
+     peak GB per rank; the per-shard form differs from the global one
+     under reference L2 and agrees within 1e-5 under feature L2; an NCCL
+     world of 1 (a one-card machine holds no more NCCL ranks) bitwise
+     equal to the one-process step; sequence parallelism at (dp, sp) =
+     (1, 2), T 25 -> 26, against the one-process gradient; the MoE
+     flagship (4 experts) in one process at B = 120 (step ms, aux), then
+     expert parallelism at (1, 2) against the one-process MoE gradient at
+     B = 40 (cut: both ranks hold the whole batch on the one card).
 
 Gradient limits scale with each case, and every run reads planted faults
 (a backward without the g^T term, with the negative role's sign flipped,
@@ -1304,7 +1324,6 @@ def int8_phase(card, sets, gallery_dir, probe_dir, experdir, serve_res,
     from ugaitnet_tpu_torch.models.network import UGaitNet
     from ugaitnet_tpu_torch.ops.knn import (int8_mm, pairwise_l2_int8,
                                             quantize_rows)
-    from ugaitnet_tpu_torch.core.config import BranchConfig, ModelConfig
     dev = torch.device("cuda")
     out = {}
     gallery_ds, probe_ds = GaitDataset.load(gallery_dir), \
@@ -1330,13 +1349,7 @@ def int8_phase(card, sets, gallery_dir, probe_dir, experdir, serve_res,
           f"product [{card}]")
     del g_cpu, g_dev
 
-    def flagship():
-        return ModelConfig(
-            branches=(BranchConfig(kind="gaitset", modality="of"),
-                      BranchConfig(kind="gaitset", modality="gray")),
-            merge="sign_max", nclasses=74)
-
-    model = UGaitNet(flagship(), seed=0)
+    model = UGaitNet(flagship_cfg(), seed=0)
     fp32 = SignatureService(model, MODS, knn=3, buckets=BUCKETS)
     fp32.build_gallery(gallery_ds, batch_size=128)
     svc = SignatureService(model, MODS, knn=3, buckets=BUCKETS,
@@ -2482,12 +2495,586 @@ def joint_phase(card, work, casia_dir, gallery_dir, probe_dir, fit7_ms):
     return out
 
 
+# ---- phase 12: multi-device training over torch.distributed ------------
+# Two gloo ranks share the one card (devices passed explicitly): rank 0
+# and rank 1 each hold half of the global batch.  Limits: losses against
+# the one-process step within P12_LOSS_RTOL (float32 sums over other
+# batch splits); gradients, averaged over the ranks, max |ranks - one
+# process| <= P12_GRAD_REL * max |one process| over the whole gradient.
+# The ranks' set streams and part projections run over 60 rows, not 120,
+# and round apart from the one process's; where the two branches' values
+# tie within that rounding, the sign_max merge may take the other branch,
+# and that element's gradient then reaches the other branch's parameters
+# whole.  So the limit is phase 1's GRAD_REL.  Every run shows that this
+# is the gap: the one-process step made to take the ranks' sign_max picks
+# must hold the ranks' gradient within P12_FED_REL.  It also runs the
+# one-process step fed the ranks' gathered signatures (the triplet's
+# inputs bitwise the ranks'), and counts the triplets whose hinge changes
+# side: an H100 (700 W) reads 1 switched pick of 1,904,640, 1.68e-3
+# unforced and fed, 6.0e-5 forced, and no hinge that changes side.
+# Every run also reads three planted faults against P12_GRAD_REL (the
+# gather without its autograd, own rows only; the local L2 inside the
+# global form; gradients summed, not averaged).
+P12_LOSS_RTOL = 1e-5
+P12_GRAD_REL = GRAD_REL
+P12_FED_REL = 1e-4
+P12_NEAR = 1e-6                  # a hinge this close to 0 is counted
+P12_STEPS = 3
+P12_FAULTS = ("gather without autograd", "local L2 in the global form",
+              "no world factor")
+
+
+def _grad_err(grads, ref, rows=None, worst=None):
+    """max |g - ref| over max |ref|, over every leaf; ``rows`` maps a leaf
+    to the slice of the reference it holds (expert shards).  ``worst``
+    (a dict) receives the leaf where the max lies."""
+    rows = rows or {}
+    errs = {k: float((g.cpu() - ref[k][rows.get(k, slice(None))])
+                     .abs().max()) for k, g in grads.items()}
+    k = max(errs, key=errs.get)
+    if worst is not None:
+        worst["leaf"] = k
+    return errs[k] / max(float(r.abs().max()) for r in ref.values())
+
+
+def _p12_fault(name):
+    """Context that plants one of P12_FAULTS in this rank's modules."""
+    import torch.distributed as dist
+    from ugaitnet_tpu_torch.ops import fusion
+    from ugaitnet_tpu_torch.ops.collectives import gather_rows_nograd
+    from ugaitnet_tpu_torch.train import train_step as TS
+
+    def own_rows_only(x, group):
+        full = gather_rows_nograd(x.detach(), group)
+        i, b = dist.get_rank(group), x.shape[0]
+        return torch.cat([full[:i * b], x, full[(i + 1) * b:]])
+    sig = fusion.signature
+    avg = TS.average_gradients
+
+    def summed(model, mesh):
+        avg(model, mesh)
+        for p in model.parameters():
+            if p.grad is not None:
+                p.grad.mul_(mesh.world)
+    target = {
+        "gather without autograd": (TS, "all_gather_rows", own_rows_only),
+        "local L2 in the global form": (
+            fusion, "signature",
+            lambda fused, l2_mode="reference", group=None:
+            sig(fused, l2_mode)),
+        "no world factor": (TS, "average_gradients", summed),
+    }[name]
+
+    @contextlib.contextmanager
+    def planted():
+        mod, attr, fn = target
+        old = getattr(mod, attr)
+        setattr(mod, attr, fn)
+        try:
+            yield
+        finally:
+            setattr(mod, attr, old)
+    return planted()
+
+
+class _Substitute(torch.autograd.Function):
+    """Forward: ``values``; backward: the cotangent goes to ``x``, the
+    tensor they stand in for."""
+
+    @staticmethod
+    def forward(ctx, x, values):
+        return values.clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def _p12_flips(sig_a, sig_b, labels, margin):
+    """Batch-all triplets (a == p included, as the loss counts them) under
+    two (B, P, D) signatures, part by part with the plain pairwise_dist:
+    (hinges on other sides of 0, valid triplets, active under ``sig_a``,
+    |hinge| < P12_NEAR under ``sig_a``)."""
+    from ugaitnet_tpu_torch.ops.triplet import pairwise_dist
+    same = labels[:, None] == labels[None, :]
+    valid = same[:, :, None] & ~same[:, None, :]
+    flips = active = near = 0
+    for p in range(sig_a.shape[1]):
+        h = [margin + d[:, :, None] - d[:, None, :]
+             for d in (pairwise_dist(s[:, p]) for s in (sig_a, sig_b))]
+        flips += int((((h[0] > 0) != (h[1] > 0)) & valid).sum())
+        active += int(((h[0] > 0) & valid).sum())
+        near += int(((h[0].abs() < P12_NEAR) & valid).sum())
+    return flips, int(valid.sum()) * sig_a.shape[1], active, near
+
+
+def _p12_picks(out):
+    """The sign_max merge's picks of a two-branch forward's outputs: 1
+    where the first gated branch's value is taken (uint8, (B, P, D))."""
+    first, second = out["branches"]
+    return (first.detach().abs() >= second.detach().abs()).to(torch.uint8)
+
+
+def _p12_cause(work, mcfg, tcfg, one, dev):
+    """The global form's gap to the one-process gradient, accounted for.
+    The one-process step is run twice more and held to the ranks'
+    averaged gradient: with its signature's values replaced by the ranks'
+    gathered ones (its own backward), and with its sign_max merge taking
+    the ranks' picks.  Beside it, how far the ranks' signatures (global
+    form and SP) lie from the one process's, how many triplet hinges
+    change side, and how many sign_max picks differ."""
+    from ugaitnet_tpu_torch.ops import fusion
+    from ugaitnet_tpu_torch.train.train_step import make_train_step
+    dp = torch.load(os.path.join(work, "dp.pt"), weights_only=True)
+    sig_dp, picks_dp = dp["sig"].to(dev), dp["picks"].to(dev).bool()
+    batch = _p12_load(work, "batch.pt", dev)
+
+    def substitute(mod, args, out):
+        out = dict(out)
+        out["signature"] = _Substitute.apply(out["signature"], sig_dp)
+        return out
+    res = {}
+    sign_max = fusion.MERGES["sign_max"]
+    for name in ("signatures_fed", "picks_forced"):
+        probe = _p12_probe(mcfg)
+        hooks = []
+        if name == "signatures_fed":
+            hooks.append(probe.model.register_forward_hook(substitute))
+        else:
+            fusion.MERGES["sign_max"] = lambda embs: torch.where(
+                picks_dp, embs[0], embs[1])
+        try:
+            make_train_step(mcfg, tcfg)(probe, batch)
+        finally:
+            fusion.MERGES["sign_max"] = sign_max
+            for h in hooks:
+                h.remove()
+        worst = {}
+        res[name] = _grad_err(_p12_grads(probe), dp["grads"], worst=worst)
+        res[name + "_leaf"] = worst["leaf"]
+        del probe
+        gc.collect()
+        torch.cuda.empty_cache()
+    res["pick_switches"] = int((picks_dp != one["picks"].to(dev).bool())
+                               .sum())
+    sig_one = one["sig"].to(dev)
+    sig_sp = torch.load(os.path.join(work, "sp_sig.pt"),
+                        weights_only=True).to(dev)
+    for name, sig in (("dp", sig_dp), ("sp", sig_sp)):
+        flips, valid, active, near = _p12_flips(sig_one, sig, batch.labels,
+                                                tcfg.margin)
+        res[name] = {"sig_max_abs_diff": float((sig - sig_one).abs().max()),
+                     "flips": flips, "valid": valid, "active": active,
+                     "near": near}
+    return res
+
+
+def _p12_setup():
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+
+
+def _p12_load(work, name, dev):
+    from ugaitnet_tpu_torch.train.train_step import Batch
+    d = torch.load(os.path.join(work, name), weights_only=True)
+    return Batch(tuple(v.to(dev) for v in d["volumes"]),
+                 tuple(f.to(dev) for f in d["flags"]), d["labels"].to(dev))
+
+
+def _p12_probe(mcfg, mesh=None, seed=0):
+    """A seed-0 state whose optimizer leaves the parameters as they are (SGD
+    at lr 0): its steps leave the averaged gradient in .grad."""
+    from ugaitnet_tpu_torch.core.config import TrainConfig
+    from ugaitnet_tpu_torch.models.network import UGaitNet
+    from ugaitnet_tpu_torch.train.train_step import init_state
+    return init_state(UGaitNet(mcfg, seed=seed, mesh=mesh),
+                      TrainConfig(optimizer="sgd", lr=0.0))
+
+
+def _p12_grads(state):
+    return {k: p.grad.detach().clone() for k, p in
+            state.model.named_parameters() if p.grad is not None}
+
+
+def _p12_timed(step, probe, batch, n=2):
+    """The host ms of each of ``n`` synchronized steps (the parameters stay
+    as they are: lr 0), and the last step's metrics."""
+    ms = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, m = step(probe, batch)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return ms, m
+
+
+def _p12_rank(rank, work):
+    """One rank of phase 12's gloo world of 2 on cuda:0."""
+    import torch.distributed as dist
+    from ugaitnet_tpu_torch.core.config import TrainConfig
+    from ugaitnet_tpu_torch.ops.cuda import build
+    from ugaitnet_tpu_torch.ops.cuda import triplet_kernel as K
+    from ugaitnet_tpu_torch.models.network import UGaitNet
+    from ugaitnet_tpu_torch.ops.collectives import gather_rows_nograd
+    from ugaitnet_tpu_torch.parallel import sharding as S
+    from ugaitnet_tpu_torch.parallel.expert import (make_ep_train_step,
+                                                     make_mesh_dpep,
+                                                     place_ep_model)
+    from ugaitnet_tpu_torch.parallel.sequence import (make_mesh_dpsp,
+                                                       make_sp_train_step,
+                                                       shard_batch_sp,
+                                                       sp_model_config)
+    from ugaitnet_tpu_torch.train.train_step import init_state
+    _p12_setup()
+    build.load("triplet_kernel")      # the parent built it
+    dev = torch.device("cuda", 0)
+    devices = [dev, dev]
+    ref = torch.load(os.path.join(work, "ref.pt"), weights_only=True)
+    batch = _p12_load(work, "batch.pt", dev)
+    mcfg = flagship_cfg()
+    tcfg = TrainConfig()
+    res = {"rank": rank}
+    torch.cuda.reset_peak_memory_stats()
+
+    # 1. the global form, world 2
+    mesh = S.make_mesh(2, devices)
+    local = S.shard_batch(batch, mesh)
+    step = S.make_sharded_train_step(mcfg, tcfg, mesh)
+    shapes = []
+    launch_fwd = K.launch_fwd
+
+    def recording(x, labels, margin):
+        shapes.append(tuple(x.shape))
+        return launch_fwd(x, labels, margin)
+    probe = _p12_probe(mcfg)
+    taps = []
+    hook = probe.model.register_forward_hook(
+        lambda mod, args, out: taps.append(out))
+    K.reset_launch_counts()
+    K.launch_fwd = recording
+    try:
+        _, m = step(probe, local)
+    finally:
+        K.launch_fwd = launch_fwd
+        hook.remove()
+    res["launches"] = [K.fwd_launches, K.bwd_launches]
+    # the gathered signatures and sign_max picks and the averaged gradient,
+    # for the parent's account of the gap to the one-process gradient
+    group = mesh.group("data")
+    gathered = {"sig": gather_rows_nograd(taps[0]["signature"].detach(),
+                                          group),
+                "picks": gather_rows_nograd(_p12_picks(taps[0]), group)}
+    if rank == 0:
+        torch.save({**{k: v.cpu() for k, v in gathered.items()},
+                    "grads": {k: g.cpu() for k, g in
+                              _p12_grads(probe).items()}},
+                   os.path.join(work, "dp.pt"))
+    del taps, gathered
+    res["shapes"] = shapes
+    res["loss"] = {k: float(v) for k, v in m.items()}
+    res["worst"] = {}
+    res["grad_err"] = _grad_err(_p12_grads(probe), ref["grads"],
+                                worst=res["worst"])
+    res["faults"] = {}
+    for name in P12_FAULTS:
+        probe = _p12_probe(mcfg)
+        with _p12_fault(name):
+            step(probe, local)
+        res["faults"][name] = _grad_err(_p12_grads(probe), ref["grads"])
+    del probe
+    state = init_state(UGaitNet(mcfg, seed=0), tcfg)
+    times = []
+    for _ in range(P12_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(state, local)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    res["step_ms"] = times
+    flat = torch.cat([p.detach().reshape(-1)
+                      for p in state.model.parameters()])
+    mine = flat.clone()
+    dist.broadcast(flat, src=0)
+    res["params_equal_rank0"] = bool(torch.equal(flat, mine))
+    res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del state, flat, mine
+    torch.cuda.empty_cache()
+
+    # 2. per-shard vs global form: reference L2 must differ; feature L2
+    # with no dropout (the flagship has none) must agree
+    res["forms"] = {}
+    for l2 in ("reference", "feature"):
+        cfg = dataclasses.replace(mcfg, l2_mode=l2)
+        losses = []
+        for make in (S.make_sharded_train_step, S.make_shardmap_train_step):
+            _, m = make(cfg, tcfg, mesh)(_p12_probe(cfg), local)
+            losses.append(float(m["loss"]))
+        res["forms"][l2] = losses
+    torch.cuda.empty_cache()
+
+    # 4. sequence parallelism (dp, sp) = (1, 2): T 25 -> 26
+    mesh_sp = make_mesh_dpsp(1, 2, devices)
+    sp_batch = shard_batch_sp(batch, mesh_sp)
+    probe = _p12_probe(sp_model_config(mcfg), mesh_sp)
+    sigs = []
+    hook = probe.model.register_forward_hook(
+        lambda mod, args, out: sigs.append(out["signature"].detach()))
+    ms, m = _p12_timed(make_sp_train_step(mcfg, tcfg, mesh_sp), probe,
+                       sp_batch)
+    hook.remove()
+    if rank == 0:
+        torch.save(sigs[-1].cpu(), os.path.join(work, "sp_sig.pt"))
+    del sigs
+    res["sp"] = {"ms": ms,
+                 "frames": list(sp_batch.volumes[0].shape),
+                 "loss": float(m["loss"]),
+                 "grad_err": _grad_err(_p12_grads(probe), ref["grads"])}
+    del probe, sp_batch
+    torch.cuda.empty_cache()
+
+    # 5. expert parallelism (dp, ep) = (1, 2), 4 experts, B = 40
+    moe_cfg = flagship_cfg(experts=4)
+    mesh_ep = make_mesh_dpep(1, 2, devices)
+    small = _p12_load(work, "batch40.pt", dev)
+    model = UGaitNet(moe_cfg, seed=0)
+    place_ep_model(model, mesh_ep)
+    probe = init_state(model, TrainConfig(optimizer="sgd", lr=0.0))
+    ms, m = _p12_timed(make_ep_train_step(moe_cfg, tcfg, mesh_ep), probe,
+                       S.shard_batch(small, mesh_ep))
+    rows = {f"branches.{n}.expert_proj": slice(
+        br.expert_start, br.expert_start + br.expert_proj.shape[0])
+        for n, br in model.branches.items()}
+    res["ep"] = {"ms": ms,
+                 "loss": float(m["loss"]), "moe_aux": float(m["moe_aux"]),
+                 "expert_rows": {k: [v.start, v.stop]
+                                 for k, v in rows.items()},
+                 "grad_err": _grad_err(_p12_grads(probe), ref["moe_grads"],
+                                       rows)}
+    with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def _p12_nccl_rank(rank, work):
+    """One step of the global form on an NCCL world of 1."""
+    from ugaitnet_tpu_torch.core.config import TrainConfig
+    from ugaitnet_tpu_torch.ops.cuda import build
+    from ugaitnet_tpu_torch.parallel import sharding as S
+    _p12_setup()
+    build.load("triplet_kernel")
+    dev = torch.device("cuda", 0)
+    ref = torch.load(os.path.join(work, "ref.pt"), weights_only=True)
+    batch = _p12_load(work, "batch.pt", dev)
+    mesh = S.make_mesh(1, [dev])
+    probe = _p12_probe(flagship_cfg())
+    _, m = S.make_sharded_train_step(flagship_cfg(), TrainConfig(), mesh)(
+        probe, S.shard_batch(batch, mesh))
+    grads = _p12_grads(probe)
+    res = {"backend": mesh.backend, "loss": float(m["loss"]),
+           "loss_equal": float(m["loss"]) == ref["loss"]["loss"],
+           "grads_equal": all(torch.equal(g.cpu(), ref["grads"][k])
+                              for k, g in grads.items()),
+           "grad_err": _grad_err(grads, ref["grads"])}
+    with open(os.path.join(work, "nccl.json"), "w") as f:
+        json.dump(res, f)
+
+
+def flagship_cfg(experts=0, dtype="float32"):
+    """The flagship (``__graft_entry__.py:_flagship_cfg``), with ``experts``
+    MoE experts per branch (0: the per-part projection)."""
+    from ugaitnet_tpu_torch.core.config import BranchConfig, ModelConfig
+    return ModelConfig(
+        branches=(BranchConfig(kind="gaitset", modality="of",
+                               moe_experts=experts),
+                  BranchConfig(kind="gaitset", modality="gray",
+                               moe_experts=experts)),
+        merge="sign_max", nclasses=74, compute_dtype=dtype)
+
+
+def parallel_phase(card, work):
+    """Phase 12: the multi-device training forms over torch.distributed."""
+    from ugaitnet_tpu_torch.core.config import DataConfig, TrainConfig
+    from ugaitnet_tpu_torch.data.pipeline import preprocess_batch
+    from ugaitnet_tpu_torch.models.network import UGaitNet
+    from ugaitnet_tpu_torch.parallel import sharding as S
+    from ugaitnet_tpu_torch.train.train_step import (Batch, init_state,
+                                                     make_train_step)
+    t_phase = time.perf_counter()
+    os.makedirs(work, exist_ok=True)
+    _p12_setup()
+    mods = (("of", "gray"), (2, 1), (100.0, 1.0), 2)
+    # phase 3's first augmented batch (raw B = 40, expand 3) and seed-0 state
+    vols, flags, labels = preprocess_batch(
+        raw_batch(40, 8, seed=2), *mods, 3, True, DataConfig(),
+        generator=torch.Generator().manual_seed(0))
+    batch = Batch(tuple(vols), tuple(flags), labels)
+    for name, rows in (("batch.pt", slice(None)), ("batch40.pt",
+                                                    slice(0, 40))):
+        torch.save({"volumes": [v[rows].cpu() for v in vols],
+                    "flags": [f[rows].cpu() for f in flags],
+                    "labels": labels[rows].cpu()},
+                   os.path.join(work, name))
+    small = Batch(tuple(v[:40] for v in vols), tuple(f[:40] for f in flags),
+                  labels[:40])
+    check(len(set(labels[:40].tolist())) > 1, "B = 40 batch: one id")
+    mcfg, moe_cfg, tcfg = flagship_cfg(), flagship_cfg(experts=4), \
+        TrainConfig()
+    probe = _p12_probe(mcfg)
+    taps = []
+    hook = probe.model.register_forward_hook(
+        lambda mod, args, out: taps.append(
+            {"sig": out["signature"].detach().cpu(),
+             "picks": _p12_picks(out).cpu()}))
+    _, m = make_train_step(mcfg, tcfg)(probe, batch)
+    hook.remove()
+    one = taps[0]
+    ref = {"loss": {k: float(v) for k, v in m.items()},
+           "grads": {k: g.cpu() for k, g in _p12_grads(probe).items()}}
+    del probe, taps
+    # the MoE flagship: one process at B = 120 (time, aux), the reference
+    # gradient at B = 40
+    moe_state = init_state(UGaitNet(moe_cfg, seed=0), tcfg)
+    moe_step = make_train_step(moe_cfg, tcfg)
+    moe_ms, moe_aux = [], []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(P12_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, m = moe_step(moe_state, batch)
+        torch.cuda.synchronize()
+        moe_ms.append((time.perf_counter() - t0) * 1e3)
+        moe_aux.append(float(m["moe_aux"]))
+        check(np.isfinite(float(m["loss"])), f"MoE step loss {m}")
+    moe_peak = torch.cuda.max_memory_allocated() / 1e9
+    del moe_state
+    probe = _p12_probe(moe_cfg)
+    _, m = make_train_step(moe_cfg, tcfg)(probe, small)
+    ref["moe_loss"] = float(m["loss"])
+    ref["moe_grads"] = {k: g.cpu() for k, g in _p12_grads(probe).items()}
+    check(all(k in ref["moe_grads"] and
+              float(ref["moe_grads"][k].abs().max()) > 0 for k in
+              ("branches.branch_of.router", "branches.branch_gray.router")),
+          "MoE: no gradient reaches a router")
+    torch.save(ref, os.path.join(work, "ref.pt"))
+    del probe, batch, small, vols, flags, labels
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 12 shapes: global batch B = 120 (raw 40 x expand 3), 2 "
+          f"ranks x 60 rows; SP (1, 2): each rank B = 120 x 13 of 26 "
+          f"frames; MoE (4 experts): one process B = 120, EP (1, 2) at B "
+          f"= 40 (cut from 120: both ranks hold the whole batch on one "
+          f"card) [{card}]")
+    print(f"MoE flagship one process B = 120: step ms "
+          f"{[round(t, 2) for t in moe_ms]}, aux {moe_aux}, peak "
+          f"{moe_peak:.2f} GB [{card}]")
+
+    t0 = time.perf_counter()
+    S.spawn(_p12_rank, 2, args=(work,), devices=["cuda:0", "cuda:0"])
+    world2_s = time.perf_counter() - t0
+    ranks = [json.load(open(os.path.join(work, f"rank{r}.json")))
+             for r in range(2)]
+    t0 = time.perf_counter()
+    S.spawn(_p12_nccl_rank, 1, args=(work,), devices=["cuda:0"])
+    nccl_s = time.perf_counter() - t0
+    nccl = json.load(open(os.path.join(work, "nccl.json")))
+    t0 = time.perf_counter()
+    cause = _p12_cause(work, mcfg, tcfg, one, torch.device("cuda"))
+    cause_s = time.perf_counter() - t0
+
+    for r in ranks:
+        tag = f"rank {r['rank']}"
+        ref_form, feat_form = r["forms"]["reference"], r["forms"]["feature"]
+        sp, ep = r["sp"], r["ep"]
+        print(f"{tag}: global form loss {r['loss']['loss']:.7f} (one process"
+              f" {ref['loss']['loss']:.7f}), gradient err {r['grad_err']:.2e}"
+              f" at {r['worst']['leaf']} (limit {P12_GRAD_REL}); faults "
+              + ", ".join(f"{k} {v:.2e}" for k, v in r["faults"].items())
+              + f"; launches fwd/bwd {r['launches']} at (P, B, D) "
+              f"{[(s[1], s[0], s[2]) for s in r['shapes']]}; {P12_STEPS} "
+              f"Adam steps {[round(t, 2) for t in r['step_ms']]} ms; params"
+              f" == rank 0's: {r['params_equal_rank0']}; peak "
+              f"{r['peak_gb']:.2f} GB [{card}]")
+        print(f"{tag}: reference L2 global {ref_form[0]:.7f} vs per-shard "
+              f"{ref_form[1]:.7f}; feature L2 {feat_form[0]:.7f} vs "
+              f"{feat_form[1]:.7f}")
+        print(f"{tag}: SP (1, 2) frames {sp['frames']}, loss "
+              f"{sp['loss']:.7f}, gradient err {sp['grad_err']:.2e}, steps "
+              f"{[round(t, 2) for t in sp['ms']]} ms; EP (1, 2) experts "
+              f"{ep['expert_rows']}, loss {ep['loss']:.7f} (one process "
+              f"{ref['moe_loss']:.7f}), aux {ep['moe_aux']:.6f}, gradient "
+              f"err {ep['grad_err']:.2e}, steps "
+              f"{[round(t, 2) for t in ep['ms']]} ms [{card}]")
+    print(f"NCCL world 1 ({nccl['backend']}): loss bitwise "
+          f"{nccl['loss_equal']}, gradients bitwise {nccl['grads_equal']} "
+          f"(max err {nccl['grad_err']:.2e}); the only NCCL coverage on a "
+          "one-card machine (NCCL refuses two ranks on one card)")
+    dpc, spc = cause["dp"], cause["sp"]
+    print(f"global form gap accounted for: the one-process step reads "
+          f"{ranks[0]['grad_err']:.2e} from the ranks' gradient; fed the "
+          f"ranks' gathered signatures {cause['signatures_fed']:.2e}; with "
+          f"the ranks' sign_max picks {cause['picks_forced']:.2e} at "
+          f"{cause['picks_forced_leaf']} (limit {P12_FED_REL}); "
+          f"{cause['pick_switches']} of "
+          f"{120 * 62 * 256} picks differ; signatures max |ranks - one "
+          f"process| {dpc['sig_max_abs_diff']:.2e}, {dpc['flips']} of "
+          f"{dpc['valid']} valid triplets change side ({dpc['active']} "
+          f"active in the one process, {dpc['near']} with |hinge| < "
+          f"{P12_NEAR}); SP signatures {spc['sig_max_abs_diff']:.2e}, "
+          f"{spc['flips']} change side; {cause_s:.1f} s [{card}]")
+    check(cause["picks_forced"] <= P12_FED_REL,
+          "the one-process step with the ranks' sign_max picks differs "
+          "from the ranks' gradient")
+    for r in ranks:
+        tag = f"rank {r['rank']}"
+        for k in ("loss", "triplet", "id_ce"):
+            check(abs(r["loss"][k] - ref["loss"][k])
+                  <= P12_LOSS_RTOL * abs(ref["loss"][k]),
+                  f"{tag}: global form {k} vs one process")
+        check(r["grad_err"] <= P12_GRAD_REL, f"{tag}: global form gradient")
+        check(r["grad_err"] <= P12_FED_REL or cause["pick_switches"] > 0,
+              f"{tag}: a gradient gap no switched sign_max pick accounts "
+              "for")
+        for k, v in r["faults"].items():
+            check(v > P12_GRAD_REL, f"{tag}: planted fault '{k}' passes")
+        check(r["launches"] == [1, 1], f"{tag}: launches {r['launches']}")
+        check([tuple(s) for s in r["shapes"]] == [(120, 62, 256)],
+              f"{tag}: kernel shapes {r['shapes']}")
+        check(r["params_equal_rank0"], f"{tag}: params differ from rank 0's")
+        ref_form, feat_form = r["forms"]["reference"], r["forms"]["feature"]
+        check(abs(ref_form[0] - ref_form[1]) > 1e-5 * abs(ref_form[0]),
+              f"{tag}: per-shard form equals the global one under "
+              "reference L2")
+        check(abs(feat_form[0] - feat_form[1]) <= 1e-5 * abs(feat_form[0]),
+              f"{tag}: forms differ under feature L2")
+        sp, ep = r["sp"], r["ep"]
+        check(sp["frames"][1] == 13, "SP frames per rank")
+        check(abs(sp["loss"] - ref["loss"]["loss"])
+              <= P12_LOSS_RTOL * abs(ref["loss"]["loss"]), f"{tag}: SP loss")
+        check(sp["grad_err"] <= P12_GRAD_REL, f"{tag}: SP gradient")
+        check(abs(ep["loss"] - ref["moe_loss"])
+              <= P12_LOSS_RTOL * abs(ref["moe_loss"]), f"{tag}: EP loss")
+        check(ep["grad_err"] <= P12_GRAD_REL, f"{tag}: EP gradient")
+    check(nccl["backend"] == "nccl", "world 1 did not take NCCL")
+    check(nccl["loss_equal"] and nccl["grads_equal"],
+          "NCCL world 1 differs from the one-process step")
+    phase_s = time.perf_counter() - t_phase
+    print(f"phase 12: {phase_s:.1f} s (world 2: {world2_s:.1f} s, NCCL "
+          f"world 1: {nccl_s:.1f} s) [{card}]")
+    return {"ranks": ranks, "nccl": nccl, "moe_step_ms": moe_ms,
+            "moe_aux": moe_aux, "moe_peak_gb": moe_peak,
+            "world2_s": world2_s, "nccl_s": nccl_s, "phase_s": phase_s,
+            "gap_cause": cause,
+            "launches": {"triplet_fwd": ranks[0]["launches"][0],
+                         "triplet_bwd": ranks[0]["launches"][1]}}
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device")
     t_start = time.perf_counter()
-    from ugaitnet_tpu_torch.core.config import (BranchConfig, DataConfig,
-                                                ModelConfig, TrainConfig)
+    from ugaitnet_tpu_torch.core.config import DataConfig, TrainConfig
     from ugaitnet_tpu_torch.data.pipeline import preprocess_batch
     from ugaitnet_tpu_torch.models.network import UGaitNet
     from ugaitnet_tpu_torch.ops.cuda import build
@@ -2641,12 +3228,6 @@ def main():
     flag_t = times["flagship"]
 
     # ---- full-width flagship ----------------------------------------------
-    def flagship(dtype="float32"):
-        return ModelConfig(
-            branches=(BranchConfig(kind="gaitset", modality="of"),
-                      BranchConfig(kind="gaitset", modality="gray")),
-            merge="sign_max", nclasses=74, compute_dtype=dtype)
-
     dcfg = DataConfig()
     mods = (("of", "gray"), (2, 1), (100.0, 1.0), 2)
 
@@ -2654,7 +3235,7 @@ def main():
     raw = raw_batch(128, 1, seed=1)
     embed = {}
     for dtype in ("float32", "bfloat16"):
-        model = UGaitNet(flagship(dtype), seed=0)
+        model = UGaitNet(flagship_cfg(dtype=dtype), seed=0)
         model.eval()
         iters = 10
 
@@ -2683,7 +3264,7 @@ def main():
         del model
 
     # ---- 3. train: the main path -------------------------------------------
-    mcfg, tcfg = flagship(), TrainConfig()
+    mcfg, tcfg = flagship_cfg(), TrainConfig()
     check(tcfg.triplet_kind == "batch_all", "default triplet kind")
     model = UGaitNet(mcfg, seed=0)
     state = init_state(model, tcfg)
@@ -2748,7 +3329,7 @@ def main():
     for n, t in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
         print(f"  {t / 2e3:9.3f} ms/step {t / busy:6.1%}  {n[:90]}")
 
-    bf_cfg = flagship("bfloat16")
+    bf_cfg = flagship_cfg(dtype="bfloat16")
     bf_state = init_state(UGaitNet(bf_cfg, seed=0), tcfg)
     bf_step = make_train_step(bf_cfg, tcfg)
     bf_ms = []
@@ -2808,10 +3389,11 @@ def main():
     print(f"synthetic CASIA-B-shaped sets: 2 x {len(gallery_ds)} clips in "
           f"{time.perf_counter() - t0:.1f} s")
     K.reset_launch_counts()
-    eval_model = UGaitNet(flagship(), seed=0)
+    eval_model = UGaitNet(flagship_cfg(), seed=0)
     eval_res = eval_phase(eval_model, gallery_ds, probe_ds, card)
     del eval_model
-    serve_res = serve_phase(lambda dt: UGaitNet(flagship(dt), seed=0),
+    serve_res = serve_phase(lambda dt: UGaitNet(flagship_cfg(dtype=dt),
+                                                seed=0),
                             gallery_ds, probe_ds, card)
     print(f"triplet kernel launches during eval and serve: "
           f"{K.fwd_launches}, {K.bwd_launches} (not on these paths)")
@@ -2888,6 +3470,13 @@ def main():
         joint_launches = joint_res["launches"]
         print(f"phase 11: {joint_res['phase_s']:.1f} s; triplet launches in "
               f"the joint run {joint_launches} [{card}]")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # ---- 12. multi-device training over torch.distributed (ranks in
+        # processes of their own; this one holds no model while they run)
+        parallel_res = parallel_phase(card, os.path.join(sets, "parallel"))
+        parallel_launches = parallel_res["launches"]
     finally:
         shutil.rmtree(sets, ignore_errors=True)
 
@@ -2903,7 +3492,9 @@ def main():
                                   conv_launches["triplet_fwd"],
                               "surface_steps":
                                   surface_launches["triplet_fwd"],
-                              "joint_fit": joint_launches["triplet_fwd"]},
+                              "joint_fit": joint_launches["triplet_fwd"],
+                              "parallel_rank_step":
+                                  parallel_launches["triplet_fwd"]},
          "max_abs_err": fwd_err, "ms": flag_t["fwd_ms"],
          "plain_ms": flag_t["plain_fwd_ms"],
          "bound_ms": flag_t["fwd_bound"][0],
@@ -2917,7 +3508,9 @@ def main():
                                   conv_launches["triplet_bwd"],
                               "surface_steps":
                                   surface_launches["triplet_bwd"],
-                              "joint_fit": joint_launches["triplet_bwd"]},
+                              "joint_fit": joint_launches["triplet_bwd"],
+                              "parallel_rank_step":
+                                  parallel_launches["triplet_bwd"]},
          "max_abs_err": bwd_err, "ms": flag_t["bwd_ms"],
          "plain_ms": flag_t["plain_bwd_ms"],
          "bound_ms": flag_t["bwd_bound"][0],
@@ -2941,7 +3534,7 @@ def main():
                       "eval": eval_res, "serve": serve_res,
                       "trainer": trainer_res, "int8": int8_res,
                       "branches": branch_res, "surface": surface_res,
-                      "joint": joint_res}))
+                      "joint": joint_res, "parallel": parallel_res}))
     print(f"wall time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -285,11 +285,13 @@ def test_unported_options_raise():
     jcfg = graft._flagship_cfg(tiny=True)
     cfg = _tcfg(jcfg)
     import dataclasses
-    for bad in (dataclasses.replace(cfg, seq_axis="sp"),
-                dataclasses.replace(cfg, branches=(dataclasses.replace(
-                    cfg.branches[0], moe_experts=4),) + cfg.branches[1:])):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            UGaitNet(bad, device="cpu")
+    # seq_axis needs the mesh whose axis it names (parallel/sequence.py);
+    # the MoE projection is ported (ops/moe.py)
+    with pytest.raises(ValueError, match="needs a mesh with that axis"):
+        UGaitNet(dataclasses.replace(cfg, seq_axis="sp"), device="cpu")
+    moe = UGaitNet(dataclasses.replace(cfg, branches=(dataclasses.replace(
+        cfg.branches[0], moe_experts=4),) + cfg.branches[1:]), device="cpu")
+    assert tuple(moe.branches["branch_of"].expert_proj.shape) == (4, 16, 16)
     with pytest.raises(ValueError, match="unknown branch kind"):
         UGaitNet(dataclasses.replace(cfg, branches=(dataclasses.replace(
             cfg.branches[0], kind="conv1d"),) + cfg.branches[1:]),
@@ -324,14 +326,20 @@ TRAINER_SLICE = ("train/schedule.py", "train/trainer.py", "obsv/logger.py",
                  "data/tfrecord.py", "data/dataset_info.py",
                  "utils/warm_start.py", "utils/keras_import.py",
                  "utils/keras_export.py", "cli/build_data.py",
-                 "cli/sweep.py")
+                 "cli/sweep.py", "parallel/sharding.py",
+                 "parallel/sequence.py", "parallel/expert.py",
+                 "parallel/dryrun.py", "ops/moe.py", "ops/collectives.py")
 
 
 def _port_sources():
-    files = [os.path.join(REPO, "chip_smoke.py")]
+    """The port, chip_smoke.py (whose phase 12 ranks run _p12_rank) and
+    the test ranks' module, which spawned test processes import."""
+    files = [os.path.join(REPO, "chip_smoke.py"),
+             os.path.join(REPO, "tests", "torch_ranks.py")]
     for root, _, names in os.walk(os.path.join(REPO, "ugaitnet_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     return files
+
 
 
 def test_port_imports_no_jax():

@@ -2,8 +2,13 @@
 
 Port of ``ugaitnet_tpu/cli/train.py``: the same flags and the same
 ``configs_from_args``, plus ``--device`` (default ``cuda``; the CPU only
-when asked for).  The multi-device modes and MoE raise
-``NotImplementedError`` naming their ROADMAP item.
+when asked for).  ``--ndevices N`` trains data-parallel on N ranks,
+``--sp S`` / ``--ep E`` on a (max(1, N) x S) sequence- or expert-parallel
+mesh (``parallel/``).  The command starts the ranks itself, one process
+each (``--device cpu``: CPU ranks on gloo; else one card each, NCCL, and
+an error when the host has fewer cards), or runs as one rank under
+``torchrun``.  ``--tp`` and ``--pp`` raise ``NotImplementedError`` naming
+their ROADMAP item.
 
 Examples:
   # flagship CASIA-B 2-mod config (gaitset + sign_max)
@@ -22,6 +27,16 @@ Examples:
       --casenet C --postriplet 2 --auxlosses --focal --remat \\
       --tripletkind semi_hard --device cpu
 
+  # data-parallel on 2 CPU ranks; sequence-parallel over 2 ranks; expert-
+  # parallel MoE; on a host with 2 cards: --device cuda (the default), or
+  # torchrun --nproc-per-node 2 -m ugaitnet_tpu_torch.cli.train --ndevices 2
+  python -m ugaitnet_tpu_torch.cli.train --synthetic --epochs 1 --bs 8 \\
+      --ndevices 2 --device cpu
+  python -m ugaitnet_tpu_torch.cli.train --synthetic --epochs 1 --bs 8 \\
+      --sp 2 --device cpu
+  python -m ugaitnet_tpu_torch.cli.train --synthetic --epochs 1 --bs 8 \\
+      --ep 2 --moe 4 --device cpu
+
   # joint TUM-GAID + CASIA-B (BothDatasets) with per-source standardization,
   # then a fine-tune on CASIA-B from its best checkpoint (head surgery)
   python -m ugaitnet_tpu_torch.cli.train --datadir /data/tum_packed \\
@@ -36,6 +51,7 @@ from __future__ import annotations
 
 import argparse
 import os
+import sys
 
 ROADMAP_MULTI = "ROADMAP.md section 1, item 12 (multi-device and extras)"
 
@@ -100,15 +116,20 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--noaugment", action="store_true")
     p.add_argument("--valperc", type=float, default=0.08)
     p.add_argument("--ndevices", type=int, default=0,
-                   help="data-parallel devices (not ported yet)")
+                   help="data-parallel ranks (0 = one process)")
     p.add_argument("--tp", type=int, default=0,
                    help="model-parallel devices (not ported yet)")
     p.add_argument("--sp", type=int, default=0,
-                   help="sequence-parallel devices (not ported yet)")
+                   help="sequence-parallel ranks: a (ndevices x sp) mesh "
+                        "sharding the gait set (time) axis "
+                        "(parallel/sequence.py); 0 = off, exclusive with "
+                        "--tp/--ep")
     p.add_argument("--pp", type=int, default=0,
                    help="branch-placement devices (not ported yet)")
     p.add_argument("--ep", type=int, default=0,
-                   help="expert-parallel devices (not ported yet)")
+                   help="expert-parallel ranks: a (ndevices x ep) mesh "
+                        "sharding the MoE expert axis (parallel/expert.py);"
+                        " requires --moe, 0 = off")
     p.add_argument("--asyncckpt", action="store_true",
                    help="write checkpoints on a background thread (the "
                         "train loop waits only for the copy to the host)")
@@ -138,7 +159,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--gspartdim", type=int, default=0,
                    help="gaitset per-part projection dim (default 256)")
     p.add_argument("--moe", type=int, default=0,
-                   help="MoE part projection experts (not ported yet)")
+                   help="MoE part projection with this many experts "
+                        "(ops/moe.py): a learned top-1 router over (batch, "
+                        "part) tokens replaces the per-part MatMul; 0 = off")
     p.add_argument("--moecap", type=float, default=1.25,
                    help="MoE expert capacity factor")
     p.add_argument("--device", type=str, default="cuda",
@@ -199,12 +222,41 @@ def configs_from_args(args):
     return mcfg, dcfg, tcfg
 
 
-def _refuse_unported(args) -> None:
-    """The flags whose paths the port does not have yet."""
-    for flag in ("ndevices", "tp", "sp", "pp", "ep", "moe"):
-        if getattr(args, flag):
+def check_modes(tcfg, mcfg) -> None:
+    """The JAX CLI's exclusivity rules, then the flags whose paths the port
+    does not have yet."""
+    if sum(1 for d in (tcfg.tp_devices, tcfg.sp_devices,
+                       tcfg.ep_devices) if d) > 1:
+        raise SystemExit("--tp/--sp/--ep are exclusive (one 2D mesh each); "
+                         "pick the sharding that relieves your bottleneck")
+    if tcfg.pp_devices and (tcfg.tp_devices or tcfg.sp_devices
+                            or tcfg.ep_devices or tcfg.dp_devices):
+        raise SystemExit("--pp is exclusive with --ndevices/--tp/--sp/--ep "
+                         "(branch placement orchestrates devices itself)")
+    if tcfg.ep_devices and not mcfg.has_moe:
+        raise SystemExit("--ep requires --moe (there is no expert axis "
+                         "to shard otherwise)")
+    for flag, n in (("tp", tcfg.tp_devices), ("pp", tcfg.pp_devices)):
+        if n:
             raise NotImplementedError(f"--{flag} is not ported yet "
                                       f"({ROADMAP_MULTI})")
+
+
+def mesh_axes(tcfg):
+    """[(axis, size), ...] of the run's mesh, None for one process: --ep
+    and --sp make a 2-D mesh with --ndevices (default 1) data ranks."""
+    dp = max(1, tcfg.dp_devices)
+    if tcfg.ep_devices:
+        return [("data", dp), ("expert", tcfg.ep_devices)]
+    if tcfg.sp_devices:
+        return [("data", dp), ("seq", tcfg.sp_devices)]
+    if tcfg.dp_devices:
+        return [("data", dp)]
+    return None
+
+
+def _rank_main(rank: int, argv) -> None:
+    main(argv)
 
 
 def make_warm_start(args, mcfg):
@@ -234,17 +286,53 @@ def make_warm_start(args, mcfg):
 
 
 def main(argv=None):
+    argv = list(sys.argv[1:] if argv is None else argv)
     args = build_parser().parse_args(argv)
-    _refuse_unported(args)
-    from ugaitnet_tpu_torch.data.schema import GaitDataset
-    from ugaitnet_tpu_torch.data.synthetic import make_synthetic_dataset
-    from ugaitnet_tpu_torch.train.trainer import Trainer, experiment_name
-
     if args.nclasses is None:
         # --synthetic defaults to a smoke-sized 8 classes so the module
         # docstring's example runs out of the box; real data keeps 74
         args.nclasses = 8 if args.synthetic else 74
     mcfg, dcfg, tcfg = configs_from_args(args)
+    check_modes(tcfg, mcfg)
+    from ugaitnet_tpu_torch.train.trainer import experiment_name
+    experdir = os.path.join(
+        args.experdir, experiment_name(mcfg, dcfg, tcfg, args.experfix))
+
+    axes = mesh_axes(tcfg)
+    mesh = None
+    if axes is not None:
+        import torch.distributed as dist
+        from ugaitnet_tpu_torch.parallel import sharding as S
+        world = 1
+        for _, n in axes:
+            world *= n
+        if not dist.is_initialized():
+            if not S.under_torchrun():
+                # one process per rank, each running this command
+                print(f"* experiment dir: {experdir} ({world} ranks)",
+                      flush=True)
+                devices = S.device_list(world, args.device)
+                # CPU ranks share the host's cores
+                threads = (max(1, (os.cpu_count() or 1) // world)
+                           if devices[0].type == "cpu" else None)
+                S.spawn(_rank_main, world, args=(argv,), devices=devices,
+                        threads=threads)
+                return experdir
+            S.init_from_env(args.device)
+            try:
+                return _train(args, mcfg, dcfg, tcfg, experdir,
+                              S.build_mesh(axes))
+            finally:
+                dist.destroy_process_group()
+        mesh = S.build_mesh(axes, S.device_list(world, args.device))
+    return _train(args, mcfg, dcfg, tcfg, experdir, mesh)
+
+
+def _train(args, mcfg, dcfg, tcfg, experdir, mesh):
+    from ugaitnet_tpu_torch.data.schema import GaitDataset
+    from ugaitnet_tpu_torch.data.synthetic import make_synthetic_dataset
+    from ugaitnet_tpu_torch.train.trainer import Trainer
+
     if args.synthetic:
         if args.nclasses > 16:
             raise SystemExit("--synthetic needs --nclasses <= 16")
@@ -258,10 +346,8 @@ def main(argv=None):
         if args.datadir2:
             from ugaitnet_tpu_torch.data.convert import combine_datasets
             ds = combine_datasets(ds, GaitDataset.load(args.datadir2))
-
-    experdir = os.path.join(
-        args.experdir, experiment_name(mcfg, dcfg, tcfg, args.experfix))
-    print(f"* experiment dir: {experdir}", flush=True)
+    if mesh is None or mesh.is_main:
+        print(f"* experiment dir: {experdir}", flush=True)
 
     norm_stats = None
     if args.normstats:
@@ -279,7 +365,7 @@ def main(argv=None):
                                       np.stack([s[1] for s in stats]))
 
     trainer = Trainer(mcfg, dcfg, tcfg, experdir,
-                      use_tensorboard=args.tensorboard,
+                      use_tensorboard=args.tensorboard, mesh=mesh,
                       norm_stats=norm_stats,
                       warm_start=make_warm_start(args, mcfg),
                       device=args.device)

@@ -62,7 +62,11 @@ def _to_cpu(tree):
 
 def snapshot(state) -> Dict[str, Any]:
     """{"step", "model", "optimizer"} of a ``TrainState``, on the CPU; a bare
-    module gives {"step": 0, "model": ...}."""
+    module gives {"step": 0, "model": ...}; a payload of that form (a whole
+    expert-parallel state, ``parallel/expert.py:full_snapshot``) is copied
+    as it is."""
+    if isinstance(state, dict):
+        return _to_cpu(state)
     if isinstance(state, torch.nn.Module):
         return {"step": 0, "model": _to_cpu(state.state_dict())}
     return {"step": int(state.step),

@@ -26,12 +26,17 @@ JAX step folds ``state.step`` into its dropout key, so a run resumed from a
 checkpoint draws the masks an uninterrupted run draws.  Its bits cannot
 match JAX's key stream (ROADMAP.md section 3), so parity runs in eval mode
 or with dropout 0.
+
+Under data parallelism (``parallel/sharding.py``) the key is a
+``ShardKey`` in the global form, so that each rank draws the global
+batch's mask and keeps its own rows, bitwise the one-process mask; the
+per-shard form folds the data index into the key (``fold_key``).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, Optional, Sequence, Tuple
+from typing import Callable, NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -74,21 +79,44 @@ def draw_seed(generator: Optional[torch.Generator]) -> int:
     return int(torch.randint(0, 2 ** 62, (), generator=generator))
 
 
+class ShardKey(NamedTuple):
+    """A dropout key for one rank's rows of a global batch: masks are drawn
+    for ``rows`` rows under ``key``, and the rank keeps rows [start, start
+    + its batch)."""
+    key: int
+    rows: int
+    start: int
+
+
+DropKey = Union[int, ShardKey]
+
+
+def fold_key(key: int, index: int) -> int:
+    """A key of its own for shard ``index`` (the JAX ``fold_in``)."""
+    return hash((int(key), int(index))) % 2 ** 62
+
+
 def keyed_dropout(x: torch.Tensor, rate: float, seed: int,
-                  key: Optional[int]) -> torch.Tensor:
+                  key: Optional[DropKey]) -> torch.Tensor:
     """flax's Dropout: keep with probability 1 - rate, kept values divided
     by it.  The mask is a function of (the layer's seed, key) alone, drawn
     from a generator of its own, so the global RNG is left as it is and a
-    recompute (remat) or a resumed run draws the same mask."""
+    recompute (remat) or a resumed run draws the same mask.  A ``ShardKey``
+    draws the global batch's mask and keeps this shard's rows."""
     if key is None:
         raise ValueError("train-mode dropout needs a key (the train step "
                          "passes its step count)")
     if rate >= 1.0:
         return torch.zeros_like(x)
+    shape, start = x.shape, 0
+    if isinstance(key, ShardKey):
+        shape, start = (key.rows, *x.shape[1:]), key.start
+        key = key.key
     gen = torch.Generator(device=x.device).manual_seed(
         hash((seed, int(key))) % 2 ** 63)
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=gen, device=x.device) < keep
+    mask = torch.rand(shape, generator=gen, device=x.device) < keep
+    mask = mask[start:start + x.shape[0]]
     return torch.where(mask, x / keep, torch.zeros_like(x))
 
 

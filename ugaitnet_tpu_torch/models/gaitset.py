@@ -12,12 +12,23 @@ and the set stream runs ``(B, C, H, W)``.
                      strip of the 16x16 map taken ROW-MAJOR over (H, W),
                      reduced by mean + max; (a, b) interleaved per bin
                      -> 2 * 31 = 62 parts
-  part projection:   (62, C3, part_dim) tensor, einsum("bpc,pcd->bpd")
+  part projection:   (62, C3, part_dim) tensor, einsum("bpc,pcd->bpd"), or
+                     with ``moe_experts`` E > 0 the MoE projection
+                     (``ops/moe.py``): ``router`` (C3, E) and ``expert_proj``
+                     (E, C3, part_dim); the branch then returns (parts, the
+                     Switch load-balance aux loss)
 
 lrelu is ``max(x, 0.3 x)``, applied after the pools as in the JAX module
 (exact by monotonicity).  With ``dtype=torch.bfloat16`` the conv inputs and
 weights are cast to bf16 (outputs bf16) and the part projection takes bf16
 inputs with float32 accumulation and output, where the JAX module casts.
+
+Sequence parallelism (``parallel/sequence.py``): with ``seq_group`` set the
+branch holds only its rank's frames, and each set pool is the local max
+over them, gathered over the group and maxed again; a global max over T is
+the max of the ranks' maxima.  Expert parallelism (``parallel/expert.py``)
+sets ``expert_group`` and keeps experts [``expert_start``, ``expert_start``
++ E_local) of ``expert_proj``.
 """
 
 from __future__ import annotations
@@ -26,9 +37,12 @@ import math
 from typing import Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
+from ugaitnet_tpu_torch.ops.collectives import all_gather_rows
+from ugaitnet_tpu_torch.ops.moe import moe_capacity, moe_project
 from ugaitnet_tpu_torch.ops.pooling import max_pool_2x2
 
 A_CONVS = ("a_conv1", "a_conv2", "a_conv3", "a_conv4", "a_conv5", "a_conv6")
@@ -62,9 +76,13 @@ class FrameConv(nn.Module):
                         padding=w.shape[-1] // 2)
 
 
-def _set_max(a: torch.Tensor, batch: int) -> torch.Tensor:
-    """Set pooling: (B*T, C, H, W) -> (B, C, H, W), max over time."""
-    return torch.amax(a.reshape(batch, -1, *a.shape[1:]), dim=1)
+def _set_max(a: torch.Tensor, batch: int, seq_group=None) -> torch.Tensor:
+    """Set pooling: (B*T, C, H, W) -> (B, C, H, W), max over time; over the
+    seq group's frames too when one is given."""
+    out = torch.amax(a.reshape(batch, -1, *a.shape[1:]), dim=1)
+    if seq_group is not None:
+        out = torch.amax(all_gather_rows(out[None], seq_group), dim=0)
+    return out
 
 
 def _hpp(fmap: torch.Tensor, num_bin: int) -> torch.Tensor:
@@ -84,18 +102,18 @@ class GaitSetBranch(nn.Module):
                  hpp_bins: Sequence[int] = (1, 2, 4, 8, 16),
                  part_dim: int = 256, leaky_alpha: float = 0.3,
                  pad: int = 2, dtype: torch.dtype = torch.float32,
-                 moe_experts: int = 0,
+                 moe_experts: int = 0, moe_capacity_factor: float = 1.25,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if moe_experts > 0:
-            raise NotImplementedError(
-                "the MoE part projection is not ported yet (ROADMAP.md "
-                "section 1, item 12: multi-device and extras)")
         c1, c2, c3 = channels
         self.hpp_bins = tuple(hpp_bins)
         self.leaky_alpha = leaky_alpha
         self.pad = pad
         self.dtype = dtype
+        self.moe_experts = moe_experts
+        self.moe_capacity_factor = moe_capacity_factor
+        self.seq_group = None
+        self.expert_group, self.expert_start = None, 0
         # (name, in, out, kernel) in the JAX module's creation order
         a_specs = [(in_channels, c1, 5), (c1, c1, 3), (c1, c2, 3),
                    (c2, c2, 3), (c2, c3, 3), (c3, c3, 3)]
@@ -103,14 +121,25 @@ class GaitSetBranch(nn.Module):
         for name, (ci, co, k) in zip(A_CONVS + B_CONVS, a_specs + b_specs):
             setattr(self, name, FrameConv(ci, co, k, dtype, generator))
         nparts = 2 * sum(self.hpp_bins)
-        self.part_proj = nn.Parameter(glorot_(
-            torch.empty((nparts, c3, part_dim)), c3 * nparts,
-            part_dim * nparts, generator))
+        if moe_experts > 0:
+            e = moe_experts
+            self.router = nn.Parameter(glorot_(torch.empty((c3, e)), c3, e,
+                                               generator))
+            self.expert_proj = nn.Parameter(glorot_(
+                torch.empty((e, c3, part_dim)), c3 * e, part_dim * e,
+                generator))
+        else:
+            self.part_proj = nn.Parameter(glorot_(
+                torch.empty((nparts, c3, part_dim)), c3 * nparts,
+                part_dim * nparts, generator))
 
     def forward(self, x: torch.Tensor, train: bool = False,
-                key: Optional[int] = None) -> torch.Tensor:
+                key=None, group=None):
         """``train`` and ``key`` are accepted for the branch interface; the
-        GaitSet branch has no dropout."""
+        GaitSet branch has no dropout.  ``group``: the data ranks whose
+        tokens an MoE projection routes as one set (the global form of
+        ``parallel/sharding.py``).  Returns the (B, P, D) parts, or with
+        MoE (parts, aux loss)."""
         alpha = self.leaky_alpha
 
         def lrelu(v):
@@ -128,7 +157,8 @@ class GaitSetBranch(nn.Module):
         a = lrelu(max_pool_2x2(a))                     # (B*T, c1, 32, 32)
 
         # set stream, stage 1
-        sb = _set_max(a, b)
+        sq = self.seq_group
+        sb = _set_max(a, b, sq)
         sb = lrelu(self.b_conv1(sb))
         sb = self.b_conv2(sb)
         sb = lrelu(max_pool_2x2(sb))                   # (B, c2, 16, 16)
@@ -138,14 +168,14 @@ class GaitSetBranch(nn.Module):
         a = self.a_conv4(a)
         a = lrelu(max_pool_2x2(a))                     # (B*T, c2, 16, 16)
 
-        sb = sb + _set_max(a, b)                       # residual add
+        sb = sb + _set_max(a, b, sq)                    # residual add
         sb = lrelu(self.b_conv3(sb))
         sb = lrelu(self.b_conv4(sb))                   # (B, c3, 16, 16)
 
         # frame stream, stage 3 + final set pool
         a = lrelu(self.a_conv5(a))
         a = self.a_conv6(a)
-        sa = lrelu(_set_max(a, b))                     # (B, c3, 16, 16)
+        sa = lrelu(_set_max(a, b, sq))                  # (B, c3, 16, 16)
 
         sb = sb + sa
 
@@ -154,6 +184,19 @@ class GaitSetBranch(nn.Module):
             feats.append(_hpp(sa, nb))
             feats.append(_hpp(sb, nb))
         parts = torch.cat(feats, dim=1)                # (B, 62, c3)
+
+        if self.moe_experts > 0:
+            p, cdim = parts.shape[1], parts.shape[2]
+            rows = b * (dist.get_world_size(group) if group is not None
+                        else 1)
+            cap = moe_capacity(rows * p, self.moe_experts,
+                               self.moe_capacity_factor)
+            out, aux, _ = moe_project(
+                parts.reshape(b * p, cdim), self.router,
+                self.expert_proj.to(self.dtype), cap, group=group,
+                expert_group=self.expert_group,
+                expert_start=self.expert_start)
+            return out.reshape(b, p, -1), aux
 
         # bf16 in, float32 accumulation and output (preferred_element_type)
         return torch.einsum("bpc,pcd->bpd", parts.to(self.dtype).float(),

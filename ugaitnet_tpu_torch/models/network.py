@@ -7,7 +7,15 @@ L2 signature, the extra dense "code" head (casenet C) with its dropout,
 the softmax id head and the per-branch aux heads, with remat of the
 branches.  Forward taps are the JAX module's dict keys: ``branches``,
 ``fused``, ``signature``, ``code``, ``flatten``, ``classprob_logits``,
-``classprob`` and ``aux_logits``.
+``classprob`` and ``aux_logits``, and ``moe_aux`` (the sum of the MoE
+branches' load-balance losses) where a branch routes through experts.
+
+``ModelConfig.seq_axis`` names the mesh axis (``parallel/sequence.py``)
+whose ranks each hold a slice of the frames: the model is built with that
+mesh, and its GaitSet set pools close over the axis's group.  ``group`` in
+``forward`` is the data ranks' group of the global data-parallel form
+(``parallel/sharding.py``): the batch-axis L2 of the signature and MoE
+routing then span the global batch.
 """
 
 from __future__ import annotations
@@ -42,7 +50,8 @@ def make_branch(cfg: BranchConfig, dtype: torch.dtype,
             cfg.in_channels, channels=cfg.gaitset_channels,
             hpp_bins=cfg.hpp_bins, part_dim=cfg.part_dim,
             leaky_alpha=cfg.leaky_alpha, dtype=dtype,
-            moe_experts=cfg.moe_experts, generator=generator)
+            moe_experts=cfg.moe_experts,
+            moe_capacity_factor=cfg.moe_capacity_factor, generator=generator)
     if cfg.kind == "conv2d":
         return Conv2DBranch(
             NUM_FRAMES * cfg.in_channels,
@@ -66,14 +75,23 @@ def branch_input(bcfg: BranchConfig, volume: torch.Tensor) -> torch.Tensor:
     return volume
 
 
-def _check_supported(cfg: ModelConfig) -> None:
+def _check_supported(cfg: ModelConfig, mesh) -> None:
     for b in cfg.branches:
         if b.kind not in BRANCH_KINDS:
             raise ValueError(f"unknown branch kind: {b.kind}")
-    if cfg.seq_axis:
-        raise NotImplementedError(
-            "seq_axis is not ported yet (ROADMAP.md section 1, item 12: "
-            "multi-device and extras)")
+    if not cfg.seq_axis:
+        return
+    for b in cfg.branches:
+        if b.kind != "gaitset":
+            # conv2d reads the T*C plane stack densely and conv3d convolves
+            # across time: on a slice of the frames either would silently
+            # compute on a fraction of the clip
+            raise ValueError(
+                f"sequence parallelism requires gaitset branches (set-pool "
+                f"frame separability); branch kind {b.kind!r} is not")
+    if mesh is None or cfg.seq_axis not in mesh.axis_names:
+        raise ValueError(f"seq_axis {cfg.seq_axis!r} needs a mesh with that "
+                         "axis (parallel/sequence.py:make_mesh_dpsp)")
 
 
 def branch_width(b: BranchConfig) -> int:
@@ -85,11 +103,12 @@ def branch_width(b: BranchConfig) -> int:
 
 def _head_forward(cfg: ModelConfig, embeddings: Sequence[torch.Tensor],
                   use_flags: Sequence[torch.Tensor], net: "UGaitNet",
-                  train: bool = False, key: Optional[int] = None
+                  train: bool = False, key=None, group=None
                   ) -> Dict[str, object]:
     """Everything after the branches: gating, merge, signature, the extra
     dense head, the id head and the aux heads, with ``net``'s layers.
-    ``key`` keys the dropcode mask in train mode."""
+    ``key`` keys the dropcode mask in train mode; ``group`` spans the
+    signature's batch-axis L2 over the data ranks."""
     batch = embeddings[0].shape[0]
     gated = []
     for e, u, bcfg in zip(embeddings, use_flags, cfg.branches):
@@ -102,7 +121,7 @@ def _head_forward(cfg: ModelConfig, embeddings: Sequence[torch.Tensor],
 
     if cfg.multimodal:
         fused = F.MERGES[cfg.merge](gated)
-        sig = F.signature(fused, l2_mode=cfg.l2_mode)
+        sig = F.signature(fused, l2_mode=cfg.l2_mode, group=group)
     else:
         # reference quirk: single-modality nets emit the raw branch output
         # as the signature with NO L2 normalization
@@ -153,9 +172,9 @@ class UGaitNet(nn.Module):
     the JAX module's param subtrees."""
 
     def __init__(self, config: ModelConfig, device: DeviceLike = None,
-                 seed: int = 0):
+                 seed: int = 0, mesh=None):
         super().__init__()
-        _check_supported(config)
+        _check_supported(config, mesh)
         self.config = config
         dev = resolve_device(device)
         gen = torch.Generator().manual_seed(seed)
@@ -163,6 +182,9 @@ class UGaitNet(nn.Module):
         self.branches = nn.ModuleDict()
         for b in config.branches:
             self.branches[f"branch_{b.modality}"] = make_branch(b, dt, gen)
+            if config.seq_axis:
+                self.branches[f"branch_{b.modality}"].seq_group = \
+                    mesh.group(config.seq_axis)
         self.extra_dense = None
         flat_dim = config.signature_dim
         if config.extra_dense:
@@ -186,12 +208,14 @@ class UGaitNet(nn.Module):
 
     def forward(self, volumes: Sequence[torch.Tensor],
                 use_flags: Optional[Sequence[torch.Tensor]] = None,
-                train: Optional[bool] = None, key: Optional[int] = None
+                train: Optional[bool] = None, key=None, group=None
                 ) -> Dict[str, object]:
         """use_flags[i]: (B,) presence flags (None => all present).
         train: dropout on (the JAX module's ``train``); None follows the
         module's training mode.  key: the dropout masks' key (the JAX
-        module's dropout rng), needed where a train-mode layer drops.
+        module's dropout rng; an int or a ``ShardKey``), needed where a
+        train-mode layer drops.  group: the data ranks of the global
+        data-parallel form (None: this batch is the whole batch).
 
         With ``config.remat`` each branch runs under
         ``torch.utils.checkpoint`` when gradients are taken: its
@@ -209,13 +233,23 @@ class UGaitNet(nn.Module):
                          for _ in cfg.branches]
         remat = cfg.remat and train and torch.is_grad_enabled()
         embeddings: List[torch.Tensor] = []
+        moe_aux = []
         for i, b in enumerate(cfg.branches):
             branch = self.branches[f"branch_{b.modality}"]
-            x = branch_input(b, volumes[i])
+            args = (branch_input(b, volumes[i]), train, key)
+            if b.kind == "gaitset":
+                args += (group,)
             if remat:
-                embeddings.append(checkpoint(branch, x, train, key,
-                                             use_reentrant=False,
-                                             preserve_rng_state=False))
+                emb = checkpoint(branch, *args, use_reentrant=False,
+                                 preserve_rng_state=False)
             else:
-                embeddings.append(branch(x, train, key))
-        return _head_forward(cfg, embeddings, use_flags, self, train, key)
+                emb = branch(*args)
+            if b.moe_experts > 0:
+                emb, aux = emb
+                moe_aux.append(aux)
+            embeddings.append(emb)
+        out = _head_forward(cfg, embeddings, use_flags, self, train, key,
+                            group)
+        if moe_aux:
+            out["moe_aux"] = sum(moe_aux)
+        return out

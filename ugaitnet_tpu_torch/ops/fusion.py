@@ -10,6 +10,8 @@ from typing import Sequence
 
 import torch
 
+from ugaitnet_tpu_torch.ops.collectives import all_reduce_sum
+
 
 def gate(embedding: torch.Tensor, use_flag: torch.Tensor) -> torch.Tensor:
     """Multiply per-sample embeddings by a binary presence flag.
@@ -55,18 +57,23 @@ def l2_normalize(x: torch.Tensor, dim: int, eps: float = 1e-12) -> torch.Tensor:
     return x * torch.rsqrt(torch.clamp_min(sq, eps))
 
 
-def signature(fused: torch.Tensor, l2_mode: str = "reference") -> torch.Tensor:
+def signature(fused: torch.Tensor, l2_mode: str = "reference",
+              group=None) -> torch.Tensor:
     """L2-normalize the fused embedding into the gait signature.
 
     For a rank-3 (B, P, D) input, ``l2_mode="reference"`` normalizes over
     the BATCH axis 0: the reference applies l2_normalize(axis=1) to its
     parts-major (P, B, D) tensor.  ``"feature"`` normalizes each per-part
-    vector.
+    vector.  ``group``: the data ranks whose rows make up the batch (the
+    global data-parallel form); the batch-axis sum of squares is summed
+    over them, so each rank holds its rows of the one-process signature.
     """
     if fused.ndim == 2:
         return l2_normalize(fused, dim=1)
     if l2_mode == "reference":
-        return l2_normalize(fused, dim=0)
+        sq = all_reduce_sum(torch.sum(fused * fused, dim=0, keepdim=True),
+                            group)
+        return fused * torch.rsqrt(torch.clamp_min(sq, 1e-12))
     return l2_normalize(fused, dim=-1)
 
 

@@ -419,6 +419,10 @@ def quantize_model_params(model: nn.Module, mcfg: ModelConfig,
     calib_volumes: one representative (B, T, H, W, C_i) batch per branch
     (arrays or tensors)."""
     dev = model.device
+    if mcfg.has_moe:
+        raise ValueError("the int8 encode has the per-part projection only, "
+                         "as the JAX package's; an MoE part projection "
+                         "encodes in float32")
     out = {}
     for bcfg, vol in zip(mcfg.branches, calib_volumes):
         key = f"branch_{bcfg.modality}"

@@ -6,6 +6,7 @@ Port of ``ugaitnet_tpu/train/train_step.py``:
        + w_id  * CE(classprob_logits)   [label smoothing; or focal on
                                          classprob]
        + w_aux * CE(per-branch aux heads)
+       + moe_aux_weight * MoE load-balance loss  [MoE part projections]
        + reg (Keras kernel_regularizer terms)
 
 and the Siamese pair step on the verification loss
@@ -14,6 +15,13 @@ and the Siamese pair step on the verification loss
 Unlike the JAX step, which maps a state to a new one, the port updates the
 model's parameters and the optimizer's moments in place; ``TrainState``
 holds both plus the step count.
+
+On several ranks (``parallel/``) the loss takes the data ranks' ``group``:
+triplets are mined over the gathered signatures and labels and the id
+terms are averaged over the ranks, so every rank holds the same global
+loss.  ``global_batch`` picks the global form (the signature's L2 and MoE
+routing span the group in the forward) or the per-shard form (they are
+local, and the MoE term is averaged over the ranks).
 
 The optimizers reproduce the JAX package's optax updates, which
 ``inject_hyperparams`` runs with float32 hyperparameters: the learning rate
@@ -30,8 +38,13 @@ import numpy as np
 import torch
 
 from ugaitnet_tpu_torch.core.config import ModelConfig, TrainConfig
+from ugaitnet_tpu_torch.models.branches import ShardKey, fold_key
 from ugaitnet_tpu_torch.models.network import UGaitNet
 from ugaitnet_tpu_torch.ops import losses as L
+from ugaitnet_tpu_torch.ops.collectives import (DATA_AXIS, all_gather_rows,
+                                                all_reduce_mean,
+                                                average_gradients,
+                                                gather_rows_nograd)
 from ugaitnet_tpu_torch.ops.triplet import make_triplet_loss
 
 
@@ -239,15 +252,18 @@ def l2_regularization(model: UGaitNet, mcfg: ModelConfig) -> torch.Tensor:
 
 
 def losses_from_outputs(out: Dict[str, object], model: UGaitNet,
-                        batch: Batch, mcfg: ModelConfig, tcfg: TrainConfig
+                        batch: Batch, mcfg: ModelConfig, tcfg: TrainConfig,
+                        group=None, global_batch: bool = True
                         ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Loss assembly from forward outputs; metrics keys ``triplet``,
-    ``id_ce``, ``acc``, ``aux_ce_<i>`` (aux heads), ``reg`` and ``loss``."""
+    ``id_ce``, ``acc``, ``aux_ce_<i>`` (aux heads), ``moe_aux`` (MoE),
+    ``reg`` and ``loss``.  ``group``: the data ranks (module docstring)."""
     triplet_fn = make_triplet_loss(tcfg.triplet_kind, tcfg.margin)
     lw = list(tcfg.loss_weights)
     metrics: Dict[str, torch.Tensor] = {}
 
-    l_tri = triplet_fn(out["signature"], batch.labels)
+    l_tri = triplet_fn(all_gather_rows(out["signature"], group),
+                       gather_rows_nograd(batch.labels, group))
     metrics["triplet"] = l_tri
     total = lw[0] * l_tri
 
@@ -260,8 +276,10 @@ def losses_from_outputs(out: Dict[str, object], model: UGaitNet,
         else:
             l_id = L.softmax_crossentropy_logits(
                 out["classprob_logits"], onehot, tcfg.label_smoothing)
+        l_id = all_reduce_mean(l_id, group)
         metrics["id_ce"] = l_id
-        metrics["acc"] = L.accuracy(out["classprob"], onehot)
+        metrics["acc"] = all_reduce_mean(
+            L.accuracy(out["classprob"], onehot), group)
         total = total + (lw[1] if len(lw) > 1 else 1.0) * l_id
 
         if mcfg.aux_losses and "aux_logits" in out:
@@ -269,10 +287,19 @@ def losses_from_outputs(out: Dict[str, object], model: UGaitNet,
             while len(lw) < 2 + len(out["aux_logits"]):
                 lw.append(lw[-1])
             for i, al in enumerate(out["aux_logits"]):
-                l_aux = L.softmax_crossentropy_logits(
-                    al, onehot, tcfg.label_smoothing)
+                l_aux = all_reduce_mean(L.softmax_crossentropy_logits(
+                    al, onehot, tcfg.label_smoothing), group)
                 metrics[f"aux_ce_{i}"] = l_aux
                 total = total + lw[2 + i] * l_aux
+
+    if "moe_aux" in out:
+        # global routing gives every rank the global term; per shard it is
+        # the shard's, averaged like the id terms
+        moe_aux = out["moe_aux"]
+        if not global_batch:
+            moe_aux = all_reduce_mean(moe_aux, group)
+        metrics["moe_aux"] = moe_aux
+        total = total + tcfg.moe_aux_weight * moe_aux
 
     reg = l2_regularization(model, mcfg)
     metrics["reg"] = reg
@@ -282,23 +309,45 @@ def losses_from_outputs(out: Dict[str, object], model: UGaitNet,
 
 
 def compute_losses(model: UGaitNet, batch: Batch, mcfg: ModelConfig,
-                   tcfg: TrainConfig, key: Optional[int] = None
+                   tcfg: TrainConfig, key=None, group=None,
+                   global_batch: bool = True
                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    out = model(list(batch.volumes), list(batch.use_flags), key=key)
-    return losses_from_outputs(out, model, batch, mcfg, tcfg)
+    out = model(list(batch.volumes), list(batch.use_flags), key=key,
+                group=group if global_batch else None)
+    return losses_from_outputs(out, model, batch, mcfg, tcfg, group,
+                               global_batch)
 
 
-def make_train_step(mcfg: ModelConfig, tcfg: TrainConfig):
+def make_train_step(mcfg: ModelConfig, tcfg: TrainConfig, mesh=None,
+                    global_batch: bool = True):
     """step(state, batch) -> (state, metrics): one forward, backward and
     Adam update, in place.  The gradients of the step stay in ``.grad``.
     Dropout masks are keyed by ``state.step`` (the JAX step folds it into
-    its dropout key), so a resumed run draws an uninterrupted run's."""
+    its dropout key), so a resumed run draws an uninterrupted run's.
+
+    With a ``parallel.sharding.Mesh`` the batch is this rank's rows and
+    the step is data parallel over the mesh's "data" axis: the global form
+    (``global_batch``: the global batch's dropout masks, of which this rank
+    keeps its rows) or the per-shard form (a dropout stream of the data
+    index, never of another axis's, whose ranks hold the same rows and must
+    draw the same masks); the gradients are then averaged over every
+    rank."""
+    group = None if mesh is None else mesh.group(DATA_AXIS)
+
     def step(state: TrainState, batch: Batch):
+        key = state.step
+        if mesh is not None:
+            b, i = batch.labels.shape[0], mesh.index(DATA_AXIS)
+            key = (ShardKey(state.step, b * mesh.size(DATA_AXIS), i * b)
+                   if global_batch else fold_key(state.step, i))
         state.model.train()
         state.optimizer.zero_grad(set_to_none=True)
         total, metrics = compute_losses(state.model, batch, mcfg, tcfg,
-                                        key=state.step)
+                                        key=key, group=group,
+                                        global_batch=global_batch)
         total.backward()
+        if mesh is not None:
+            average_gradients(state.model, mesh)
         state.optimizer.step()
         state.step += 1
         return state, {k: v.detach() for k, v in metrics.items()}

@@ -1,8 +1,8 @@
 """Experiment runner: chunked training loop with checkpointing, resume,
 validation EER, LR plateau control, early stop and fine-tuning.
 
-Port of ``ugaitnet_tpu/train/trainer.py`` on one device (the reference
-training mains' skeleton):
+Port of ``ugaitnet_tpu/train/trainer.py`` (the reference training mains'
+skeleton):
 
   * experiment dir named from the hyperparameters
   * config dump (config.json, the JAX package's format)
@@ -19,6 +19,17 @@ training mains' skeleton):
 Validation's triplet is the training one (``batch_all``): on a card that is
 the CUDA kernel.  The JAX trainer switches validation to its XLA version
 only because of its mesh partitioner (ROADMAP.md section 3).
+
+On a mesh (``parallel/``) every rank runs this Trainer: a plain ("data",)
+mesh trains with the global form of ``parallel/sharding.py``, a ("data",
+"seq") mesh with ``parallel/sequence.py``, a ("data", "expert") mesh with
+``parallel/expert.py``.  Every rank builds the same sampler from the same
+seed and loads the same global batch, of which it trains on its part; it
+resumes from the step rank 0 found, validates the whole validation view
+(the same numbers on every rank) and takes the plateau and early-stop
+inputs from rank 0, so the ranks' learning rates never drift apart.  Rank 0
+alone writes config.json, norm stats, checkpoints (whole, so a run resumes
+at any world size), metrics, controller.json and the visual exports.
 """
 
 from __future__ import annotations
@@ -46,6 +57,14 @@ from ugaitnet_tpu_torch.eval.encode import encode_dataset
 from ugaitnet_tpu_torch.eval.verification import verification_eer
 from ugaitnet_tpu_torch.models.network import UGaitNet
 from ugaitnet_tpu_torch.obsv.logger import MetricsLogger
+from ugaitnet_tpu_torch.parallel.expert import (full_snapshot, load_full,
+                                                make_ep_train_step,
+                                                place_ep_model)
+from ugaitnet_tpu_torch.parallel.sequence import (make_sp_train_step,
+                                                  shard_batch_sp,
+                                                  sp_model_config)
+from ugaitnet_tpu_torch.parallel.sharding import (broadcast_values,
+                                                  replicate, shard_batch)
 from ugaitnet_tpu_torch.train.schedule import (EarlyStopOnAccuracy,
                                                ReduceLROnPlateau)
 from ugaitnet_tpu_torch.train.train_step import (Batch, TrainState, get_lr,
@@ -54,6 +73,16 @@ from ugaitnet_tpu_torch.train.train_step import (Batch, TrainState, get_lr,
 
 MULTI_DEVICE = ("is not ported yet (ROADMAP.md section 1, item 12: "
                 "multi-device and extras)")
+
+
+class _NullLogger:
+    """The metrics logger of ranks other than 0."""
+
+    def log(self, *args, **kwargs) -> None:
+        pass
+
+    def export_embeddings(self, *args, **kwargs) -> None:
+        pass
 
 
 def experiment_name(mcfg: ModelConfig, dcfg: DataConfig, tcfg: TrainConfig,
@@ -96,40 +125,60 @@ def _sprite_thumbnails(ds: GaitDataset, modality: str, idx: np.ndarray,
 class Trainer:
     """warm_start: optional callable on the model's ``state_dict``, returning
     the state_dict to start from; applied once at a fresh start, never on
-    resume.  device: None means the CUDA card."""
+    resume.  device: None means the CUDA card.  mesh: this rank's
+    ``parallel.sharding.Mesh`` (its device is the one trained on)."""
 
     def __init__(self, mcfg: ModelConfig, dcfg: DataConfig, tcfg: TrainConfig,
                  experdir: str, use_tensorboard: bool = False,
                  mesh=None, norm_stats=None,
                  warm_start: Optional[Callable[[Dict], Dict]] = None,
                  device: DeviceLike = None):
-        if mesh is not None:
-            raise NotImplementedError(f"training on a mesh {MULTI_DEVICE}")
-        for name in ("pp_devices", "tp_devices", "sp_devices", "ep_devices"):
+        for name in ("pp_devices", "tp_devices"):
             if getattr(tcfg, name):
                 raise NotImplementedError(f"{name} {MULTI_DEVICE}")
-        if mcfg.has_moe:
-            raise NotImplementedError(f"MoE part projections {MULTI_DEVICE}")
-        self.device = resolve_device(device)
+        axes = mesh.axis_names if mesh is not None else ()
+        if "model" in axes:
+            raise NotImplementedError(f"tensor parallelism {MULTI_DEVICE}")
+        self.mesh = mesh
+        self._sp, self._ep = "seq" in axes, "expert" in axes
+        self.main = mesh is None or mesh.is_main
+        self.device = mesh.device if mesh is not None \
+            else resolve_device(device)
         self.warm_start = warm_start
         self.norm_stats = norm_stats
         self.mcfg, self.dcfg, self.tcfg = mcfg, dcfg, tcfg
         self.experdir = experdir
         os.makedirs(experdir, exist_ok=True)
-        dump_json(os.path.join(experdir, "config.json"),
-                  model=mcfg, data=dcfg, train=tcfg)
-        if norm_stats is not None:
-            # persisted so evaluation reproduces the standardization
-            save_norm_stats(experdir, norm_stats)
-        self.step_fn = make_train_step(mcfg, tcfg)
+        if self.main:
+            dump_json(os.path.join(experdir, "config.json"),
+                      model=mcfg, data=dcfg, train=tcfg)
+            if norm_stats is not None:
+                # persisted so evaluation reproduces the standardization
+                save_norm_stats(experdir, norm_stats)
+        self.model_cfg = mcfg
+        if self._sp:
+            self.model_cfg = sp_model_config(mcfg)
+            self.step_fn = make_sp_train_step(mcfg, tcfg, mesh)
+        elif self._ep:
+            self.step_fn = make_ep_train_step(mcfg, tcfg, mesh)
+        else:
+            # one process, or the global data-parallel form on a mesh
+            self.step_fn = make_train_step(mcfg, tcfg, mesh)
         self.eval_step = make_eval_step(mcfg, tcfg)
-        self.logger = MetricsLogger(experdir, use_tensorboard)
+        self.logger = (MetricsLogger(experdir, use_tensorboard) if self.main
+                       else _NullLogger())
         self.modalities = tuple(b.modality for b in mcfg.branches)
         self._ckpt_writer = (ckpt.AsyncCheckpointWriter()
-                             if tcfg.async_checkpoint else None)
+                             if tcfg.async_checkpoint and self.main else None)
         self._export_warned = False
 
     def _save_ckpt(self, step, state: TrainState) -> None:
+        """Rank 0 writes; under expert parallelism every rank first helps
+        gather the whole expert_proj."""
+        if self._ep:
+            state = full_snapshot(state, self.mesh)
+        if not self.main:
+            return
         if self._ckpt_writer is not None:
             self._ckpt_writer.save(self.experdir, step, state)
         else:
@@ -152,6 +201,8 @@ class Trainer:
         """Publish controller.json after the checkpoints saved before it
         (with async saves, on the writer's thread behind them): a restart
         may read a record older than its checkpoint, never a newer one."""
+        if not self.main:
+            return
         rec = {"plateau_best": float(plateau.best),
                "plateau_wait": int(plateau.wait),
                "best_monitor": float(best_monitor),
@@ -162,19 +213,34 @@ class Trainer:
             _write_json(self._controller_path(), rec)
 
     # ------------------------------------------------------------------
+    def _broadcast(self, values):
+        return broadcast_values(values, self.mesh)
+
     def init_or_resume(self, seed: int = 0) -> Tuple[TrainState, int]:
-        model = UGaitNet(self.mcfg, device=self.device, seed=seed)
-        state = init_state(model, self.tcfg)
+        model = UGaitNet(self.model_cfg, device=self.device, seed=seed,
+                         mesh=self.mesh)
         last = ckpt.latest_checkpoint_step(self.experdir)
-        start_epoch = 0
-        if last is not None:
-            state = ckpt.restore_checkpoint(self.experdir, last, state)
-            start_epoch = int(last)
-            print(f"* resumed from epoch {start_epoch}", flush=True)
-        elif self.warm_start is not None:
+        # every rank resumes from the step rank 0 found
+        last = self._broadcast([-1 if last is None else last])[0]
+        last = None if last < 0 else int(last)
+        if last is None and self.warm_start is not None:
             model.load_state_dict(self.warm_start(model.state_dict()))
             print("* warm-started params", flush=True)
-        return state, start_epoch
+        if self.mesh is not None:
+            # every rank starts from rank 0's weights
+            replicate(model, self.mesh)
+        if self._ep:
+            place_ep_model(model, self.mesh)
+        state = init_state(model, self.tcfg)
+        if last is None:
+            return state, 0
+        if self._ep:
+            # a whole checkpoint, of which this rank keeps its experts
+            load_full(state, ckpt.restore_raw(self.experdir, last))
+        else:
+            state = ckpt.restore_checkpoint(self.experdir, last, state)
+        print(f"* resumed from epoch {last}", flush=True)
+        return state, last
 
     # A non-finite loss at step k is surfaced at the next check (at most
     # DIVERGENCE_CHECK_EVERY steps later): recovery is "resume from the last
@@ -195,7 +261,7 @@ class Trainer:
         for bix, (vols, flags, labels) in enumerate(
                 PrefetchLoader(pipe, sampler, seed, epoch)):
             state, metrics = self.step_fn(
-                state, Batch(tuple(vols), tuple(flags), labels))
+                state, self._shard(Batch(tuple(vols), tuple(flags), labels)))
             hist.append(metrics)
             if (bix + 1) % self.DIVERGENCE_CHECK_EVERY == 0:
                 self._raise_if_diverged([float(metrics["loss"])], epoch, bix)
@@ -211,6 +277,14 @@ class Trainer:
             for k, v in zip(keys, row):
                 agg[k] = agg.get(k, 0.0) + v
         return state, {k: v / nsteps for k, v in agg.items()}
+
+    def _shard(self, batch: Batch) -> Batch:
+        """This rank's part of the global batch."""
+        if self._sp:
+            return shard_batch_sp(batch, self.mesh)
+        if self.mesh is not None:
+            return shard_batch(batch, self.mesh)
+        return batch
 
     def _raise_if_diverged(self, losses, epoch: int, last_bix: int) -> None:
         """Surface divergence with a recoverable message instead of
@@ -266,6 +340,8 @@ class Trainer:
             norm_stats=self.norm_stats)
         # projector export + first-conv filter images, like the TUM mains'
         # per-chunk visual logging
+        if not self.main:
+            return verification_eer(codes, labels)
         try:
             self.logger.export_embeddings(
                 epoch, codes, labels,
@@ -295,13 +371,18 @@ class Trainer:
     def fit(self, ds: GaitDataset, val_perc: float = 0.08,
             seed: int = 0) -> TrainState:
         try:
-            return self._fit(ds, val_perc=val_perc, seed=seed)
+            state = self._fit(ds, val_perc=val_perc, seed=seed)
         finally:
             # async saves are durable before fit returns (callers evaluate
             # the checkpoint next) and before an exception propagates (a
             # divergence abort still keeps its last chunk)
             if self._ckpt_writer is not None:
                 self._ckpt_writer.wait()
+        if self.mesh is not None:
+            # no rank reads a checkpoint before rank 0 has published it
+            import torch.distributed as dist
+            dist.barrier()
+        return state
 
     @staticmethod
     def _fast_forward(sampler: BalancedGaitSampler, epochs: int) -> None:
@@ -372,6 +453,7 @@ class Trainer:
                     vm.update(self._validate(state, ds, val_idx, epoch))
                     self.logger.log(epoch, vm, prefix="val/")
                     monitored = vm.get("loss", monitored)
+                monitored = self._broadcast([monitored])[0]
                 if monitored < best_monitor:
                     best_monitor = monitored
                     self._save_ckpt("best", state)
@@ -380,7 +462,7 @@ class Trainer:
                     state = set_lr(state, new_lr)
                     print(f"* lr -> {new_lr:g}", flush=True)
                 self._save_controller_state(plateau, best_monitor)
-            if "acc" in m and early.update(m["acc"]):
+            if "acc" in m and early.update(self._broadcast([m["acc"]])[0]):
                 print(f"* early stop at epoch {epoch} (train acc "
                       f"{m['acc']:.3f})", flush=True)
                 early_stopped = True

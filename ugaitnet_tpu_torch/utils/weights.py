@@ -7,6 +7,8 @@ top-level ``"params"`` key):
                                      co) DHWIO, or (F, N) for a Dense
   params/branch_<m>/<layer>/bias     (co,) where the layer has one
   params/branch_<m>/part_proj        (P, C3, D), GaitSet only
+  params/branch_<m>/router           (C3, E), GaitSet with MoE
+  params/branch_<m>/expert_proj      (E, C3, D), GaitSet with MoE
   params/{classprob, classprob_<m>, extra_dense}/{kernel (F, N), bias (N,)}
 
 (layers: GaitSet ``a_conv1..6``, ``b_conv1..4``; 2D CNN ``conv0..3``,
@@ -16,6 +18,7 @@ top-level ``"params"`` key):
   branches.branch_<m>.<layer>.weight  OIHW, OIDHW, or (N, F)
   branches.branch_<m>.<layer>.bias    unchanged
   branches.branch_<m>.part_proj       (P, C3, D), unchanged
+  branches.branch_<m>.{router, expert_proj}   unchanged
   {classprob, classprob_<m>, extra_dense}.{weight (N, F), bias (N,)}
 
 Both directions are transposes only, so a round trip is bit-exact.
@@ -55,6 +58,10 @@ def _numpy(t: torch.Tensor) -> np.ndarray:
     return t.detach().cpu().numpy().copy()     # never alias live params
 
 
+# a branch's bare parameters (no kernel/bias subtree), carried unchanged
+BARE = ("part_proj", "router", "expert_proj")
+
+
 def _is_head_dense(name: str) -> bool:
     """The head's Dense layers: the id head, the aux heads, extra_dense."""
     return name in ("classprob", "extra_dense") or name.startswith(
@@ -81,8 +88,8 @@ def flax_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
         if name.startswith("branch_"):
             prefix = f"branches.{name}"
             for layer, leaf in sub.items():
-                if layer == "part_proj":
-                    sd[f"{prefix}.part_proj"] = _tensor(leaf)
+                if layer in BARE:
+                    sd[f"{prefix}.{layer}"] = _tensor(leaf)
                     continue
                 k = np.asarray(leaf["kernel"])
                 sd[f"{prefix}.{layer}.weight"] = _tensor(
@@ -108,8 +115,8 @@ def state_dict_to_flax(state_dict: Mapping[str, torch.Tensor]) -> Dict:
         parts = key.split(".")
         if parts[0] == "branches":
             branch = tree.setdefault(parts[1], {})
-            if parts[2] == "part_proj":
-                branch["part_proj"] = arr
+            if parts[2] in BARE:
+                branch[parts[2]] = arr
             elif parts[3] == "weight":
                 branch.setdefault(parts[2], {})["kernel"] = \
                     np.ascontiguousarray(arr.transpose(_TO_FLAX[arr.ndim]))
