@@ -34,7 +34,8 @@ channels (32, 64, 128), part_dim 256, 62 parts, sign_max merge, 74 classes):
      must give the same losses and the same gradient at the signature;
   4. checks: use_flag = 0 equals a noise-filled input exactly, and the card's
      forward agrees with the CPU's on a small batch (and with TF32 on, does
-     not);
+     not), read through the sign_max merge (``sign_max_rule``): the merge's
+     inputs, and the outputs with the CPU's picks, within 3e-4 of max;
   5. eval: a CASIA-B-shaped synthetic gallery and probe set (50 subjects x
      11 cameras x 2 videos, 1,100 clips each) encoded at B = 128 by the
      flagship with weights from seed 0 (gallery mirrored), the camera-pair
@@ -155,6 +156,29 @@ channels (32, 64, 128), part_dim 256, 62 parts, sign_max merge, 74 classes):
      flagship (4 experts) in one process at B = 120 (step ms, aux), then
      expert parallelism at (1, 2) against the one-process MoE gradient at
      B = 40 (cut: both ranks hold the whole batch on the one card).
+ 13. tensor and pipeline parallelism, mesh serving, evaluate --dp and
+     trace profiling (last): tensor parallelism at (dp, mp) = (1, 2) on a
+     gloo world of 2 ranks sharing the card, each with half of every split
+     conv, 31 of the 62 parts and half the classifier's rows, on phase 12's
+     global batch: losses within 1e-5 of the one-process step, the whole
+     gradient (shards joined) within 1e-2 of its max, and three planted
+     faults above it (no all-reduce after the row-parallel convs, an
+     identity backward in place of copy_in, the strip's triplet term
+     without its 31/62 share); each rank's kernel value on its (31, 120,
+     256) strip against the plain reduction over the kernel's own dist
+     (1e-5), exactly 1 + 1 launches per rank per step.  Pipeline
+     parallelism on [cuda:0, cuda:0] against the same step and limits, a
+     planted fault (the branch gradient dropped), 1 + 1 launches at (62,
+     120, 256).  Mesh serving and the sharded kNN on two gloo ranks over
+     phase 6's 65,536-row gallery, float32 and int8: labels equal the
+     one-card service's outside near ties, identify_codes device ms per
+     rank beside the one card's.  cli.evaluate --dp 2 on phase 5's sets and
+     phase 7's best: Rank-1 equal to phase 7's one-process evaluate, codes
+     within 1e-5 of max off the elements where a rank's sign_max pick
+     differs from the one process's, and a planted fault (batch-axis L2
+     local to each rank) above it.  summarize_trace over two train
+     steps: the top 10 kernels, and the three triplet kernels once each
+     per step.
 
 Gradient limits scale with each case, and every run reads planted faults
 (a backward without the g^T term, with the negative role's sign flipped,
@@ -354,6 +378,80 @@ def bound_int8(nbytes, nops):
 def rel_err(got, want):
     """max |got - want| over max |want|."""
     return float((got - want).abs().max() / want.abs().max())
+
+
+# card vs CPU through the flagship's sign_max merge.  The merge takes, per
+# element, the branch value of the larger magnitude, and the two branches'
+# values often have opposite signs.  Where the two magnitudes lie within
+# rounding of a tie, the card and the CPU may take different branches: the
+# element then moves by up to twice its value, and through the batch-axis
+# L2 its whole column follows, so one such pick reads O(1) of max.  Phase
+# 3's steps are not bitwise repeatable on the card, so phase 4's weights,
+# and with them its near ties, differ from run to run.  A reading through
+# the merge is therefore held in two parts, each within CPU_REL of max: the
+# merge's inputs (the gated branch values) card vs CPU, and the card's
+# outputs, its merge made to take the CPU's picks, against the CPU's.  A
+# pick can then differ only where the CPU's two magnitudes lie within twice
+# the inputs' limit of a tie; the readings say how near the switched ones
+# lay.  With no pick switched, the forced forward is the plain one.
+class SignMaxTap:
+    """Stands in for the two-branch sign_max merge inside a ``with`` block:
+    records each call's inputs and picks (True: the first branch) on the
+    host, or, given ``force`` (one picks tensor per call), takes those
+    picks in place of its own."""
+
+    def __init__(self, force=None):
+        self.calls, self.force = [], force
+
+    def __enter__(self):
+        from ugaitnet_tpu_torch.ops import fusion
+        self._merges, self._merge = fusion.MERGES, fusion.MERGES["sign_max"]
+        fusion.MERGES["sign_max"] = self._call
+        return self
+
+    def __exit__(self, *exc):
+        self._merges["sign_max"] = self._merge
+
+    def _call(self, embeddings):
+        first, second = embeddings
+        picks = first.abs() >= second.abs()
+        if self.force is not None:
+            picks = self.force[len(self.calls)].to(picks.device)
+        self.calls.append((first.detach().cpu(), second.detach().cpu(),
+                           picks.cpu()))
+        return torch.where(picks, first, second)
+
+
+def sign_max_rule(run_card, want, cpu_calls):
+    """Card vs CPU through the sign_max merge, read in the two parts
+    above.  ``want``: {output: CPU tensor}; ``cpu_calls``: the CPU
+    forward's ``SignMaxTap`` calls; ``run_card()`` gives the card's outputs
+    under the same keys.  Returns the readings; ``passes(r, k)`` is the
+    rule for output k."""
+    with SignMaxTap() as tap:
+        got = run_card()
+    with SignMaxTap(force=[c[2] for c in cpu_calls]):
+        forced = run_card()
+    r = {"raw": {k: rel_err(got[k].cpu(), v) for k, v in want.items()},
+         "forced": {k: rel_err(forced[k].cpu(), v) for k, v in want.items()},
+         "branches": 0.0, "tie": 0.0, "switched": 0, "picks": 0, "near": 0}
+    for (a, b, p), (ga, gb, gp) in zip(cpu_calls, tap.calls):
+        err = max(rel_err(ga, a), rel_err(gb, b))
+        r["branches"] = max(r["branches"], err)
+        gap = (a.abs() - b.abs()).abs() / torch.maximum(a.abs().max(),
+                                                        b.abs().max())
+        switched = gp != p
+        r["switched"] += int(switched.sum())
+        r["picks"] += p.numel()
+        # picks that rounding of the merge inputs' size could switch
+        r["near"] += int((gap <= 2 * err).sum())
+        if switched.any():
+            r["tie"] = max(r["tie"], float(gap[switched].max()))
+    return r
+
+
+def passes(r, k):
+    return max(r["forced"][k], r["branches"]) <= CPU_REL
 
 
 def analytic_grad(x, lab, fault=None, margin=0.2):
@@ -595,6 +693,54 @@ def casia_sets():
               subseqs_per_video=1, modalities=MODS, template_seed=0)
     return (make_synthetic_dataset(seed=1, name="casia_gallery", **kw),
             make_synthetic_dataset(seed=2, name="casia_probe", **kw))
+
+
+def forward_readings(model, mods, dcfg, seed=4):
+    """A raw B = 4 batch (2 ids) from ``seed`` through ``model`` on the card
+    and through a CPU copy of it, read by ``sign_max_rule``: {tf32: readings}
+    with TF32 off and on."""
+    from ugaitnet_tpu_torch.data.pipeline import preprocess_batch
+    keys = ("signature", "classprob_logits")
+    vols, flags, _ = preprocess_batch(raw_batch(4, 2, seed=seed), *mods, 1,
+                                      False, dcfg)
+    cpu_model = copy.deepcopy(model).to("cpu")
+    with torch.inference_mode(), SignMaxTap() as tap:
+        out = cpu_model([v.cpu() for v in vols], [f.cpu() for f in flags])
+    want = {k: out[k] for k in keys}
+
+    def run_card():
+        with torch.inference_mode():
+            out = model(vols, flags)
+        return {k: out[k] for k in keys}
+    res = {}
+    for tf32 in (False, True):
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        torch.backends.cudnn.allow_tf32 = tf32
+        try:
+            res[tf32] = sign_max_rule(run_card, want, tap.calls)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+    return res
+
+
+def forward_vs_cpu(model, mods, dcfg):
+    """Phase 4's card vs CPU forward: ``sign_max_rule`` must hold for every
+    output with TF32 off, and fail for every output with TF32 on."""
+    res = forward_readings(model, mods, dcfg)
+    for tf32, r in res.items():
+        print(f"card vs CPU forward, TF32 {'on' if tf32 else 'off'}: merge "
+              f"inputs {r['branches']:.2e}; sign_max picks switched "
+              f"{r['switched']} of {r['picks']} ({r['near']} within twice "
+              f"that of a tie; the switched nearest a tie {r['tie']:.2e} of "
+              f"max); outputs raw / with the CPU's picks "
+              + ", ".join(f"{k} {r['raw'][k]:.2e} / {r['forced'][k]:.2e}"
+                          for k in r["raw"]) + f" (limit {CPU_REL})")
+    for k in res[False]["raw"]:
+        check(passes(res[False], k), f"card vs CPU {k}")
+        check(not passes(res[True], k),
+              f"card vs CPU {k}: TF32 passes the limit")
+    return res
 
 
 def eval_phase(model, gallery_ds, probe_ds, card):
@@ -3070,6 +3216,552 @@ def parallel_phase(card, work):
                          "triplet_bwd": ranks[0]["launches"][1]}}
 
 
+# ---- phase 13: tensor and pipeline parallelism, mesh serving, the
+# data-parallel evaluate and trace profiling ------------------------------
+# TP (1, 2): two gloo ranks share the card, each with half of every split
+# conv, 31 parts and half the classifier's rows, on phase 12's global batch
+# (P13_TP_ROWS rows).  Limits as phase 12's: losses against the one-process
+# step within P13_LOSS_RTOL, the whole gradient (shards joined) within
+# GRAD_REL of its largest entry; each rank's kernel value on its strip
+# against the plain reduction over the kernel's own dist within VAL_RTOL.
+# Three planted faults must exceed the gradient limit.  PP on [cuda:0,
+# cuda:0]: the same limits, one planted fault (the second slot's branch
+# gradient dropped).  Mesh serving: two gloo ranks, each holding half of
+# phase 6's 65,536-row random gallery (float32 and int8), and the sharded
+# kNN on it, against the one-card service: labels equal except where the
+# one card's 3rd and 4th neighbors lie within P13_TIE_REL of each other.
+# evaluate --dp 2 on phase 5's sets and phase 7's best: Rank-1 equal to
+# phase 7's one-process evaluate; codes within P13_CODE_REL of max |code|
+# except at the elements where a rank's sign_max pick differs from the one
+# process's.  Each rank's convolutions run on 64 clips, not 128, and round
+# apart (an H100 at 700 W reads 3.7e-6 of max on seed-0 weights, hence
+# 1e-5 and not 1e-6), so a pick at a near tie may switch and that element
+# take the other branch's value, of the same magnitude and perhaps the
+# other sign.  The ranks' picks are those of the CLI's own encode; the one
+# process's come from its forward on the same batch again, whose codes must
+# equal the cached ones bitwise.  A planted fault, the batch-axis L2 local
+# to each rank, is read by the same rule and must fail it.
+P13_LOSS_RTOL = 1e-5
+P13_GRAD_REL = GRAD_REL
+P13_TP_ROWS = 120
+P13_TIE_REL = 1e-5
+P13_CODE_REL = 1e-5
+def _p13_whole_grads(state):
+    """Every gradient, shards joined whole over their model group; a
+    parameter without one reads 0."""
+    from ugaitnet_tpu_torch.ops.collectives import gather_along
+    out = {}
+    for k, p in state.model.named_parameters():
+        g = p.grad if p.grad is not None else torch.zeros_like(p)
+        spec = getattr(p, "shard_spec", None)
+        out[k] = g.detach() if spec is None else \
+            gather_along(g.detach(), spec.group, spec.dim)
+    return out
+
+
+def _p13_tp_rank(rank, work):
+    """One rank of the TP (1, 2) world on cuda:0."""
+    from ugaitnet_tpu_torch.core.config import TrainConfig
+    from ugaitnet_tpu_torch.models.network import UGaitNet
+    from ugaitnet_tpu_torch.ops.cuda import build
+    from ugaitnet_tpu_torch.ops.cuda import triplet_kernel as K
+    from ugaitnet_tpu_torch.parallel import sharding as S
+    from ugaitnet_tpu_torch.parallel.faults import TP_FAULTS, tp_planted
+    from ugaitnet_tpu_torch.parallel.tensor import (make_mesh2d,
+                                                     make_tp_train_step,
+                                                     place_tp_model)
+    from ugaitnet_tpu_torch.train.train_step import init_state
+    _p12_setup()
+    build.load("triplet_kernel")      # the parent built it
+    dev = torch.device("cuda", 0)
+    ref = torch.load(os.path.join(work, "p13_ref.pt"), weights_only=True)
+    batch = _p12_load(work, "p13_batch.pt", dev)
+    mcfg, tcfg = flagship_cfg(), TrainConfig()
+    mesh = make_mesh2d(1, 2, [dev, dev])
+    local = S.shard_batch(batch, mesh)
+    step = make_tp_train_step(mcfg, tcfg, mesh)
+
+    def probe():
+        model = UGaitNet(mcfg, seed=0)
+        place_tp_model(model, mesh)
+        return init_state(model, TrainConfig(optimizer="sgd", lr=0.0))
+    res = {"rank": rank}
+    seen = []
+    launch_fwd = K.launch_fwd
+
+    def recording(x, labels, margin):
+        seen.append((x.detach().clone(), labels.clone()))
+        return launch_fwd(x, labels, margin)
+    st = probe()
+    res["shapes"] = {k: list(p.shape) for k, p in
+                     st.model.named_parameters()
+                     if k.startswith("branches.branch_of.a_conv")
+                     or k.endswith("part_proj") or k == "classprob.weight"}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    K.launch_fwd = recording
+    t0 = time.perf_counter()
+    try:
+        _, m = step(st, local)
+    finally:
+        K.launch_fwd = launch_fwd
+    torch.cuda.synchronize()
+    res["step_ms"] = (time.perf_counter() - t0) * 1e3
+    res["launches"] = [K.fwd_launches, K.bwd_launches]
+    res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    res["loss"] = {k: float(v) for k, v in m.items()}
+    res["worst"] = {}
+    res["grad_err"] = _grad_err(_p13_whole_grads(st), ref["grads"],
+                                worst=res["worst"])
+    # the kernel on this rank's strip against the plain reduction over the
+    # kernel's own dist (a launch made to compare: after the counts)
+    x, lab = seen[0]
+    res["kernel_shape"] = [x.shape[1], x.shape[0], x.shape[2]]
+    dist, s, c = launch_fwd(x, lab, tcfg.margin)
+    res["kernel_value"] = float(K.combine(s, c))
+    res["plain_over_kernel_dist"] = value_over_dist(dist, lab, tcfg.margin)
+    del seen, x, dist, st
+    torch.cuda.empty_cache()
+    # the faults on the first 40 rows, against their own one-process step
+    ref40 = torch.load(os.path.join(work, "p13_ref40.pt"), weights_only=True)
+    local40 = S.shard_batch(_p12_load(work, "p13_batch40.pt", dev), mesh)
+    res["faults"] = {}
+    for name in TP_FAULTS:
+        st = probe()
+        with tp_planted(name):
+            step(st, local40)
+        res["faults"][name] = _grad_err(_p13_whole_grads(st),
+                                        ref40["grads"])
+        del st
+        torch.cuda.empty_cache()
+    with open(os.path.join(work, f"p13_tp{rank}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def _p13_gallery(dev, g=65536, d=15872):
+    """Phase 6's random unit-norm gallery and its 128 queries."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn(g, d, device=dev, generator=gen)
+    x /= torch.linalg.vector_norm(x, dim=1, keepdim=True)
+    big = x.cpu().numpy()
+    del x
+    queries = big[:128] + 1e-4 * np.random.RandomState(0).randn(
+        128, d).astype(np.float32)
+    return big, np.arange(g) % 1000, queries
+
+
+def _p13_serve(big, labels, queries, mesh=None):
+    """identify_codes of the queries on a float32 and an int8 service (on
+    ``mesh`` or one card), their device ms at bucket 128, and kNN labels
+    (``knn_predict_sharded`` on a mesh, ``knn_predict`` on one card)."""
+    from ugaitnet_tpu_torch.eval.serving import SignatureService
+    from ugaitnet_tpu_torch.models.network import UGaitNet
+    from ugaitnet_tpu_torch.ops.knn import (knn_predict, knn_predict_sharded,
+                                            nearest)
+    dev = torch.device("cuda", 0)
+    model = UGaitNet(flagship_cfg(), seed=0)
+    qdev = torch.from_numpy(queries).to(dev)
+    out = {}
+    for dt in ("float32", "int8"):
+        svc = SignatureService(model, MODS, knn=3, buckets=BUCKETS,
+                               gallery_dtype=dt, mesh=mesh)
+        svc.set_gallery(big, labels)
+        lab, dists = svc.identify_codes(queries)
+        with torch.no_grad():
+            ms = cuda_ms(lambda: svc._dist_vote(qdev, 3), 10)
+            rec = {"labels": lab.tolist(), "dists": dists.tolist(),
+                   "device_ms": ms, "rows": int(svc._gallery_codes.shape[0])}
+            if mesh is None:
+                d2 = svc._distances(qdev) + svc._gallery_bias[None, :]
+                rec["d2_4"] = nearest(d2, 4)[0].cpu().tolist()
+        out[dt] = rec
+        del svc
+        gc.collect()
+        torch.cuda.empty_cache()
+    for dt in ("float32", "int8"):
+        got = (knn_predict_sharded(queries, big, labels, mesh, k=3,
+                                   gallery_dtype=dt) if mesh is not None
+               else knn_predict(queries, big, labels, k=3)
+               if dt == "float32" else None)
+        out[dt]["knn"] = None if got is None else got.tolist()
+    return out
+
+
+def _p13_serve_rank(rank, work):
+    """One rank of the mesh-serving world of 2 on cuda:0."""
+    from ugaitnet_tpu_torch.parallel import sharding as S
+    _p12_setup()
+    dev = torch.device("cuda", 0)
+    mesh = S.make_mesh(2, [dev, dev])
+    res = _p13_serve(*_p13_gallery(dev), mesh=mesh)
+    with open(os.path.join(work, f"p13_serve{rank}.json"), "w") as f:
+        json.dump(res, f)
+
+
+@contextlib.contextmanager
+def _p13_recording(sink):
+    """While open, every UGaitNet forward in this process appends its
+    sign_max picks (uint8 (B, P * D), on the host) to ``sink[-1]``."""
+    from ugaitnet_tpu_torch.models.network import UGaitNet
+    forward = UGaitNet.forward
+
+    def recording(self, *args, **kwargs):
+        out = forward(self, *args, **kwargs)
+        sink[-1].append(_p12_picks(out).reshape(len(out["fused"]), -1).cpu())
+        return out
+    UGaitNet.forward = recording
+    try:
+        yield
+    finally:
+        UGaitNet.forward = forward
+
+
+def _p13_encode(args, ds_dir, batches, mesh=None):
+    """{batch: (codes, picks)} for each of ``batches`` of the set at
+    ``ds_dir``, encoded as ``cli.evaluate`` with ``args`` encodes it (the
+    same rows, tail padding and batch size; on ``mesh``, data-parallel):
+    the codes on the host, and the sign_max picks of its forward (a mesh
+    rank's rows only)."""
+    from ugaitnet_tpu_torch.cli.evaluate import load_experiment
+    from ugaitnet_tpu_torch.data.pipeline import load_norm_stats
+    from ugaitnet_tpu_torch.data.schema import GaitDataset
+    from ugaitnet_tpu_torch.eval.encode import encode_dataset
+    model, _, mcfg, _ = load_experiment(
+        args.experdir, args.epoch,
+        device=args.device if mesh is None else mesh.device)
+    mods = tuple(b.modality for b in mcfg.branches)
+    norm = load_norm_stats(args.experdir, mods)
+    ds = GaitDataset.load(ds_dir)
+    out = {}
+    for bi in batches:
+        sink = [[]]
+        with _p13_recording(sink):
+            codes = encode_dataset(
+                model, ds, mods, typecode=args.typecode,
+                batch_size=args.bs, norm_stats=norm, mesh=mesh,
+                indices=np.arange(bi * args.bs,
+                                  min((bi + 1) * args.bs, len(ds))))[0]
+        out[int(bi)] = (codes, sink[0][0])
+    return out
+
+
+def _p13_eval_rank(rank, argv, work):
+    """One rank of ``cli.evaluate --dp 2`` in a world started here.  The
+    sign_max picks of its encode's forwards (this rank's rows of every
+    batch) are saved per code cache file for the codes check.  Then the
+    probe set's first batch is encoded again on the same ranks with the
+    signature's batch-axis L2 local to each rank: a planted fault that the
+    codes check must catch."""
+    from ugaitnet_tpu_torch.cli import evaluate as cli_eval
+    from ugaitnet_tpu_torch.eval import protocol
+    from ugaitnet_tpu_torch.ops import fusion
+    from ugaitnet_tpu_torch.parallel import sharding as S
+    _p12_setup()
+    sink, files, encode_set = [[]], [], protocol.encode_set
+
+    def tagged(*a, cache_path=None, **kw):
+        files.append(os.path.basename(cache_path))
+        sink.append([])
+        return encode_set(*a, cache_path=cache_path, **kw)
+    protocol.encode_set = tagged
+    try:
+        with _p13_recording(sink), contextlib.redirect_stdout(io.StringIO()):
+            cli_eval.main(argv)
+    finally:
+        protocol.encode_set = encode_set
+    torch.save(dict(zip(files, sink[1:])),
+               os.path.join(work, f"p13_picks{rank}.pt"))
+    args = cli_eval.build_parser().parse_args(argv)
+    mesh = S.make_mesh(args.dp, S.rank_devices(args.device))
+    signature = fusion.signature
+    fusion.signature = lambda fused, l2_mode="reference", group=None: \
+        signature(fused, l2_mode)
+    try:
+        codes = _p13_encode(args, args.probes[0], [0], mesh)[0][0]
+    finally:
+        fusion.signature = signature
+    if rank == 0:
+        np.save(os.path.join(work, "p13_dp_fault.npy"), codes)
+
+
+def _p13_code_err(a, b, switched):
+    """(max |a - b| / max |a|, the same off ``switched``, elements over
+    P13_CODE_REL of max off ``switched``) of codes ``a`` and ``b``."""
+    diff = np.abs(a - b) / float(np.abs(a).max())
+    off = diff[~switched]
+    return (float(diff.max()), float(off.max()),
+            int((off > P13_CODE_REL).sum()))
+
+
+def _p13_evaluate_dp(work, experdir, gallery_dir, probe_dir, one_results,
+                     devices):
+    """``cli.evaluate --dp 2`` on two ranks over ``devices``, held to the one-process evaluate whose codes are cached in
+    ``experdir`` and whose results are ``one_results``."""
+    from ugaitnet_tpu_torch.cli import evaluate as cli_eval
+    from ugaitnet_tpu_torch.parallel import sharding as S
+    keep = os.path.join(experdir, "one_process_codes")
+    os.makedirs(keep, exist_ok=True)
+    cached = [f for f in os.listdir(experdir) if f.startswith("codes_")]
+    for f in cached:
+        os.replace(os.path.join(experdir, f), os.path.join(keep, f))
+    outfile = os.path.join(work, "p13_eval_dp.json")
+    argv = ["--experdir", experdir, "--epoch", "best", "--gallery",
+            gallery_dir, "--probes", probe_dir, "--protocol", "casiab",
+            "--knn", "3", "--bs", "128", "--dp", "2", "--outfile", outfile]
+    S.spawn(_p13_eval_rank, 2, args=(argv, work), devices=devices)
+    with open(outfile) as f:
+        dp_res = json.load(f)[os.path.basename(probe_dir)]
+    # the elements where a rank's sign_max pick (saved by the CLI's encode)
+    # differs from the one process's, in the batches with an element over
+    # the limit; the one process's picks from its forward on each such
+    # batch again, whose codes must equal phase 7's cached ones bitwise
+    args = cli_eval.build_parser().parse_args(argv)
+    bs = args.bs
+    rank_picks = [torch.load(os.path.join(work, f"p13_picks{r}.pt"))
+                  for r in range(2)]
+    fault = np.load(os.path.join(work, "p13_dp_fault.npy"))
+    code_err = {}
+    for f in cached:
+        a = np.load(os.path.join(keep, f))["codes"]
+        b = np.load(os.path.join(experdir, f))["codes"]
+        check(a.shape == b.shape, f"{f}: dp codes {b.shape} vs {a.shape}")
+        kind = f.split("_")[1]
+        nb = -(-len(a) // bs)
+        check(all(len(p[f]) == nb for p in rank_picks),
+              f"{f}: the ranks' encode ran {[len(p[f]) for p in rank_picks]}"
+              f" forwards, not {nb}")
+        rows, _ = np.nonzero(np.abs(a - b)
+                             > P13_CODE_REL * float(np.abs(a).max()))
+        batches = set(rows // bs) | ({0} if kind == "probe" else set())
+        switched = np.zeros(a.shape, bool)
+        for bi, (codes, picks) in _p13_encode(
+                args, gallery_dir if kind == "gallery" else probe_dir,
+                sorted(batches)).items():
+            real = slice(bi * bs, bi * bs + len(codes))
+            check(np.array_equal(codes, a[real]),
+                  f"{f}: batch {bi} encoded again in one process differs "
+                  "from the cached codes")
+            ranks = torch.cat([p[f][bi] for p in rank_picks])
+            check(picks.shape == ranks.shape == (bs, a.shape[1]),
+                  f"{f}: picks {tuple(picks.shape)} vs codes {a.shape}")
+            switched[real] = (picks != ranks)[:len(codes)].numpy()
+        err = _p13_code_err(a, b, switched)
+        code_err[kind] = {"max_rel": err[0], "max_rel_off_switches": err[1],
+                          "over_limit_off_switches": err[2],
+                          "over_limit": int(len(rows)),
+                          "switched_elements": int(switched.sum()),
+                          "batches_encoded_again": len(batches)}
+        if kind == "probe":
+            err = _p13_code_err(a[:len(fault)], fault, switched[:len(fault)])
+            code_err["fault_local_l2"] = {
+                "max_rel": err[0], "max_rel_off_switches": err[1],
+                "over_limit_off_switches": err[2]}
+    rank1 = {c: (dp_res[c], one_results[c]) for c in one_results
+             if c != "confusions_file"}
+    return {"code_rel_err": code_err, "cached": cached,
+            "rank1_equal": all(a == b for a, b in rank1.values())}
+
+
+def _p13_firm(one, k=3):
+    """Queries whose one-card 3rd and 4th d^2 are more than P13_TIE_REL
+    apart (a decision rounding cannot move)."""
+    d = np.asarray(one["d2_4"])
+    return d[:, k] - d[:, k - 1] > P13_TIE_REL * d[:, k]
+
+
+def tp_pp_phase(card, work, experdir, gallery_dir, probe_dir, one_results):
+    """Phase 13: TP and PP against the one-process step, mesh serving and
+    the sharded kNN, evaluate --dp 2, and a trace of two train steps."""
+    from ugaitnet_tpu_torch.core.config import TrainConfig
+    from ugaitnet_tpu_torch.models.network import UGaitNet
+    from ugaitnet_tpu_torch.obsv.logger import profile
+    from ugaitnet_tpu_torch.obsv.profiling import summarize_trace
+    from ugaitnet_tpu_torch.ops.cuda import triplet_kernel as K
+    from ugaitnet_tpu_torch.parallel import pipeline as PP
+    from ugaitnet_tpu_torch.parallel import sharding as S
+    from ugaitnet_tpu_torch.train.train_step import (Batch, init_state,
+                                                     make_train_step)
+    t_phase = time.perf_counter()
+    _p12_setup()
+    dev = torch.device("cuda", 0)
+    mcfg, tcfg = flagship_cfg(), TrainConfig()
+    out = {"tp_rows": P13_TP_ROWS}
+    # phase 12's global batch (phase 3's first augmented one), first rows
+    full = torch.load(os.path.join(work, "batch.pt"), weights_only=True)
+    for name, n in (("", P13_TP_ROWS), ("40", 40)):
+        torch.save({"volumes": [v[:n] for v in full["volumes"]],
+                    "flags": [f[:n] for f in full["flags"]],
+                    "labels": full["labels"][:n]},
+                   os.path.join(work, f"p13_batch{name}.pt"))
+        probe = _p12_probe(mcfg)
+        _, m = make_train_step(mcfg, tcfg)(
+            probe, _p12_load(work, f"p13_batch{name}.pt", dev))
+        ref = {"loss": {k: float(v) for k, v in m.items()},
+               "grads": {k: g.cpu() for k, g in _p12_grads(probe).items()}}
+        torch.save(ref, os.path.join(work, f"p13_ref{name}.pt"))
+        del probe
+    del full
+    ref = torch.load(os.path.join(work, "p13_ref.pt"), weights_only=True)
+    batch = _p12_load(work, "p13_batch.pt", dev)
+
+    # ---- PP on [cuda:0, cuda:0], in this process
+    pp = {}
+    for fault in (False, True):
+        probe = _p12_probe(mcfg)
+        step = PP.make_pipeline_train_step(probe.model, probe.optimizer,
+                                           mcfg, tcfg, [dev, dev])
+        K.reset_launch_counts()
+        with wrapped(PP, "add_branch_grads", lambda f: (lambda *a: None)) \
+                if fault else contextlib.nullcontext():
+            _, m = step(probe, batch)
+        grads = {k: (p.grad if p.grad is not None else torch.zeros_like(p))
+                 for k, p in probe.model.named_parameters()}
+        if fault:
+            pp["fault_branch_grad_dropped"] = _grad_err(grads, ref["grads"])
+        else:
+            pp["launches"] = [K.fwd_launches, K.bwd_launches]
+            pp["loss"] = {k: float(v) for k, v in m.items()}
+            pp["grad_err"] = _grad_err(grads, ref["grads"])
+            pp["step_ms"], _ = _p12_timed(step, probe, batch)
+        del probe, step, grads
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["pp"] = pp
+
+    # ---- trace profiling: two of phase 3's steps (Adam, seed-0 state)
+    state = init_state(UGaitNet(mcfg, seed=0), tcfg)
+    step = make_train_step(mcfg, tcfg)
+    step(state, batch)                       # warm-up, outside the trace
+    logdir = os.path.join(work, "p13_trace")
+    torch.cuda.synchronize()
+    with profile(logdir):
+        for _ in range(2):
+            step(state, batch)
+        torch.cuda.synchronize()
+    prof = summarize_trace(logdir, iters=2)
+    out["profile_top10"] = [list(r) for r in prof[:10]]
+    out["profile_triplet"] = {
+        k: sum(r.count for r in prof if k in r.name) / 2
+        for k in FWD_KERNELS + BWD_KERNELS}
+    del state, step, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- TP (1, 2): two gloo ranks on the card
+    t0 = time.perf_counter()
+    S.spawn(_p13_tp_rank, 2, args=(work,), devices=[dev, dev])
+    out["tp_s"] = time.perf_counter() - t0
+    out["tp"] = [json.load(open(os.path.join(work, f"p13_tp{r}.json")))
+                 for r in range(2)]
+
+    # ---- mesh serving and the sharded kNN
+    t0 = time.perf_counter()
+    big, labels, queries = _p13_gallery(dev)
+    one = _p13_serve(big, labels, queries)
+    del big
+    gc.collect()
+    torch.cuda.empty_cache()
+    S.spawn(_p13_serve_rank, 2, args=(work,), devices=[dev, dev])
+    out["serve_s"] = time.perf_counter() - t0
+    served = [json.load(open(os.path.join(work, f"p13_serve{r}.json")))
+              for r in range(2)]
+    out["serve"] = {"one_card": {dt: {"device_ms": one[dt]["device_ms"]}
+                                 for dt in one},
+                    "ranks": [{dt: {"device_ms": s[dt]["device_ms"],
+                                    "rows": s[dt]["rows"]} for dt in s}
+                              for s in served]}
+
+    # ---- evaluate --dp 2 on phase 5's sets and phase 7's best
+    t0 = time.perf_counter()
+    out["evaluate_dp"] = _p13_evaluate_dp(work, experdir, gallery_dir,
+                                          probe_dir, one_results, [dev, dev])
+    out["eval_s"] = time.perf_counter() - t0
+    out["phase_s"] = time.perf_counter() - t_phase
+
+    # ---- report, then check
+    for r in out["tp"]:
+        print(f"TP (1, 2) rank {r['rank']}: loss {r['loss']['loss']:.7f} (one "
+              f"process {ref['loss']['loss']:.7f}), gradient err "
+              f"{r['grad_err']:.2e} at {r['worst']['leaf']} (limit "
+              f"{P13_GRAD_REL}); faults " + ", ".join(
+                  f"{k} {v:.2e}" for k, v in r["faults"].items())
+              + f" (at B = 40); kernel at (P, B, D) {r['kernel_shape']}: value "
+              f"{r['kernel_value']:.7f}, plain over its dist "
+              f"{r['plain_over_kernel_dist']:.7f}; launches fwd/bwd "
+              f"{r['launches']}; step {r['step_ms']:.1f} ms; peak "
+              f"{r['peak_gb']:.2f} GB; shards {r['shapes']} [{card}]")
+    print(f"PP [cuda:0, cuda:0]: loss {pp['loss']['loss']:.7f}, gradient err"
+          f" {pp['grad_err']:.2e} (limit {P13_GRAD_REL}); fault (branch "
+          f"gradient dropped) {pp['fault_branch_grad_dropped']:.2e}; "
+          f"launches fwd/bwd {pp['launches']} at (62, {P13_TP_ROWS}, 256); "
+          f"steps {[round(t, 1) for t in pp['step_ms']]} ms [{card}]")
+    for dt in ("float32", "int8"):
+        firm = _p13_firm(one[dt])
+        for r, s in enumerate(served):
+            diff = np.asarray(s[dt]["labels"]) != np.asarray(one[dt]["labels"])
+            print(f"mesh serving {dt} rank {r}: {s[dt]['rows']} of 65536 rows,"
+                  f" identify_codes bucket 128 device {s[dt]['device_ms']:.3f}"
+                  f" ms (CUDA events, the gloo merge included; one card "
+                  f"{one[dt]['device_ms']:.3f} ms); labels differ on "
+                  f"{int(diff.sum())} queries ({int((~firm).sum())} near ties"
+                  f") [{card}]")
+            check(not (diff & firm).any(),
+                  f"mesh serving {dt} rank {r}: labels differ off near ties")
+            knn = np.asarray(s[dt]["knn"])
+            want = np.asarray(one["float32"]["knn"]) if dt == "float32" \
+                else np.asarray(one["int8"]["labels"])
+            check(not ((knn != want) & firm).any(),
+                  f"sharded kNN {dt} rank {r} differs off near ties")
+    ed = out["evaluate_dp"]
+    print(f"evaluate --dp 2: Rank-1 equal to phase 7's one process: "
+          f"{ed['rank1_equal']}; codes: max |dp - one| / max |one|, the same"
+          f" off the elements where a rank's sign_max pick differs from the "
+          f"one process's, and elements over {P13_CODE_REL} of max off them;"
+          f" the planted fault (batch-axis L2 local to each rank, the probe "
+          f"set's first batch) read by the same rule: {ed['code_rel_err']}; "
+          f"{out['eval_s']:.1f} s [{card}]")
+    print(f"trace of 2 train steps (summarize_trace, kernel events), top 10:")
+    for ms, n, name in out["profile_top10"]:
+        print(f"  {ms:9.3f} ms/step x{n:3d}  {name[:90]}")
+    print(f"triplet kernels per step in the trace: {out['profile_triplet']}")
+    print(f"phase 13: {out['phase_s']:.1f} s (TP {out['tp_s']:.1f} s, serving"
+          f" {out['serve_s']:.1f} s, evaluate {out['eval_s']:.1f} s) [{card}]")
+    for r in out["tp"]:
+        tag = f"TP rank {r['rank']}"
+        for k in ("loss", "triplet", "id_ce"):
+            check(abs(r["loss"][k] - ref["loss"][k])
+                  <= P13_LOSS_RTOL * abs(ref["loss"][k]), f"{tag}: {k}")
+        check(r["grad_err"] <= P13_GRAD_REL, f"{tag}: gradient")
+        for k, v in r["faults"].items():
+            check(v > P13_GRAD_REL, f"{tag}: planted fault '{k}' passes")
+        check(r["launches"] == [1, 1], f"{tag}: launches {r['launches']}")
+        check(r["kernel_shape"] == [31, P13_TP_ROWS, 256],
+              f"{tag}: kernel shape {r['kernel_shape']}")
+        check(abs(r["kernel_value"] - r["plain_over_kernel_dist"])
+              <= VAL_RTOL * abs(r["plain_over_kernel_dist"]),
+              f"{tag}: kernel value on the strip")
+    for k in ("loss", "triplet", "id_ce"):
+        check(abs(pp["loss"][k] - ref["loss"][k])
+              <= P13_LOSS_RTOL * abs(ref["loss"][k]), f"PP: {k}")
+    check(pp["grad_err"] <= P13_GRAD_REL, "PP: gradient")
+    check(pp["fault_branch_grad_dropped"] > P13_GRAD_REL,
+          "PP: the planted fault passes")
+    check(pp["launches"] == [1, 1], f"PP launches {pp['launches']}")
+    check(ed["rank1_equal"], "evaluate --dp 2: Rank-1 differs")
+    errs = ed["code_rel_err"]
+    check(set(errs) == {"gallery", "probe", "fault_local_l2"} and all(
+        errs[k]["over_limit_off_switches"] == 0 for k in ("gallery", "probe")),
+        f"evaluate --dp 2: codes off switched picks {errs}")
+    check(errs["fault_local_l2"]["over_limit_off_switches"] > 0,
+          "evaluate --dp 2: the planted local L2 passes the codes check")
+    check(all(v == 1 for v in out["profile_triplet"].values()),
+          f"trace: triplet kernels per step {out['profile_triplet']}")
+    out["launches"] = {"tp_rank_step": out["tp"][0]["launches"],
+                       "pp_step": pp["launches"]}
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device")
@@ -3185,7 +3877,9 @@ def main():
              ("val batch 2 (wrapped)", 62, 40, 256, val2),
              # the 2D / 3D CNN nets' (B, ndense) signature (phase 9); last,
              # so the cases above keep their draws from the generator
-             ("conv branch", None, 120, 512, pk((8, 15)))]
+             ("conv branch", None, 120, 512, pk((8, 15))),
+             # a TP (1, 2) rank's strip of parts (phase 13), after those
+             ("tp strip", 31, 120, 256, pk((12, 10)))]
     results, times = {}, {}
     dist_err = {}
     for name, parts, b, d, labels in cases:
@@ -3212,7 +3906,7 @@ def main():
         if name == "flagship":
             fwd_err = abs(vk - vp)
             bwd_err = float((gk - gp).abs().max())
-        if name in ("flagship", "B256", "B512"):
+        if name in ("flagship", "B256", "B512", "tp strip"):
             times[name] = kernel_times(x, lab)
     print(f"gradient max |kernel - plain| / max |plain| (limit {GRAD_REL}), "
           "and what planted faults read:")
@@ -3358,31 +4052,10 @@ def main():
         check(torch.equal(a, b), "use_flag=0 differs from noise input")
         print("missing modality: use_flag=0 signature == noise-input "
               "signature (exact)")
-        small = preprocess_batch(raw_batch(4, 2, seed=4), *mods, 1, False,
-                                 dcfg)
-        cpu_model = copy.deepcopy(model).to("cpu")
-        on_cpu = cpu_model([v.cpu() for v in small[0]],
-                           [f.cpu() for f in small[1]])
-
-    def card_vs_cpu(tf32):
-        torch.backends.cuda.matmul.allow_tf32 = tf32
-        torch.backends.cudnn.allow_tf32 = tf32
-        with torch.inference_mode():
-            out = model(small[0], small[1])
-        return {k: rel_err(out[k].cpu(), on_cpu[k])
-                for k in ("signature", "classprob_logits")}
-    cpu_err, tf32_err = card_vs_cpu(False), card_vs_cpu(True)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    for k in cpu_err:
-        print(f"card vs CPU forward {k}: max |card - CPU| / max |CPU| "
-              f"{cpu_err[k]:.2e} <= {CPU_REL}; with TF32 on {tf32_err[k]:.2e}"
-              f" > {CPU_REL}")
-        check(cpu_err[k] <= CPU_REL, f"card vs CPU {k}")
-        check(tf32_err[k] > CPU_REL, f"card vs CPU {k}: TF32 passes the limit")
+    fwd = forward_vs_cpu(model, mods, dcfg)
 
     # ---- 5. eval and 6. serve (no kernel of this repo on these paths) ----
-    del state, model, cpu_model, before
+    del state, model, before
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     gallery_ds, probe_ds = casia_sets()
@@ -3477,6 +4150,17 @@ def main():
         # processes of their own; this one holds no model while they run)
         parallel_res = parallel_phase(card, os.path.join(sets, "parallel"))
         parallel_launches = parallel_res["launches"]
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # ---- 13. tensor and pipeline parallelism, mesh serving, evaluate
+        # --dp, trace profiling (last; reuses phase 12's batch)
+        with open(os.path.join(sets, "train", "results.json")) as f:
+            one_eval = json.load(f)[os.path.basename(probe_dir)]
+        tp_res = tp_pp_phase(card, os.path.join(sets, "parallel"),
+                             trainer_res["experdir"], gallery_dir, probe_dir,
+                             one_eval)
+        tp_launches = tp_res["launches"]
     finally:
         shutil.rmtree(sets, ignore_errors=True)
 
@@ -3494,7 +4178,10 @@ def main():
                                   surface_launches["triplet_fwd"],
                               "joint_fit": joint_launches["triplet_fwd"],
                               "parallel_rank_step":
-                                  parallel_launches["triplet_fwd"]},
+                                  parallel_launches["triplet_fwd"],
+                              "tp_rank_step":
+                                  tp_launches["tp_rank_step"][0],
+                              "pp_step": tp_launches["pp_step"][0]},
          "max_abs_err": fwd_err, "ms": flag_t["fwd_ms"],
          "plain_ms": flag_t["plain_fwd_ms"],
          "bound_ms": flag_t["fwd_bound"][0],
@@ -3510,7 +4197,10 @@ def main():
                                   surface_launches["triplet_bwd"],
                               "joint_fit": joint_launches["triplet_bwd"],
                               "parallel_rank_step":
-                                  parallel_launches["triplet_bwd"]},
+                                  parallel_launches["triplet_bwd"],
+                              "tp_rank_step":
+                                  tp_launches["tp_rank_step"][1],
+                              "pp_step": tp_launches["pp_step"][1]},
          "max_abs_err": bwd_err, "ms": flag_t["bwd_ms"],
          "plain_ms": flag_t["plain_bwd_ms"],
          "bound_ms": flag_t["bwd_bound"][0],
@@ -3529,12 +4219,13 @@ def main():
                                        for k, v in results.items()},
                       "signature_grad_rel_err": {"kernel": sig_err,
                                                  **sig_faults},
-                      "card_vs_cpu_rel_err": {"tf32_off": cpu_err,
-                                              "tf32_on": tf32_err},
+                      "card_vs_cpu": {"tf32_off": fwd[False],
+                                      "tf32_on": fwd[True]},
                       "eval": eval_res, "serve": serve_res,
                       "trainer": trainer_res, "int8": int8_res,
                       "branches": branch_res, "surface": surface_res,
-                      "joint": joint_res, "parallel": parallel_res}))
+                      "joint": joint_res, "parallel": parallel_res,
+                      "tp_pp": tp_res}))
     print(f"wall time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

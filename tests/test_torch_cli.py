@@ -116,15 +116,12 @@ def test_evaluate_best_and_results_file(trained, tmp_path):
                                    ["--sp", "2"], ["--pp", "2"],
                                    ["--ep", "2"], ["--moe", "4"]])
 def test_unported_train_flags_raise(tmp_path, flags):
-    """--tp and --pp are not ported and raise naming their ROADMAP item;
-    the multi-device flags the port has (tests/test_torch_parallel.py and
-    its siblings run them) refuse only what the JAX CLI refuses: more
+    """The multi-device flags (tests/test_torch_parallel.py and its
+    siblings run them; --tp and --pp: test_torch_tensor_parallel.py and
+    test_torch_pipeline.py) refuse only what the JAX CLI refuses: more
     cards than the host has, --ep without --moe; --moe alone trains."""
     argv = TRAIN + ["--experdir", str(tmp_path)] + flags
-    if flags[0] in ("--tp", "--pp"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            train.main(argv)
-    elif flags[0] == "--ep":
+    if flags[0] == "--ep":
         with pytest.raises(SystemExit, match="--ep requires --moe"):
             train.main(argv)
     elif flags[0] == "--moe":
@@ -147,7 +144,7 @@ def test_cli_defaults_to_the_card(trained, tmp_path):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         evaluate.main(["--experdir", exp, "--gallery", str(root / "gallery"),
                        "--probes", str(root / "probe")])
-    with pytest.raises(NotImplementedError, match="item 12"):
+    # --dp takes one card per rank unless the CPU is asked for
+    with pytest.raises(ValueError, match="2-device mesh"):
         evaluate.main(["--experdir", exp, "--gallery", str(root / "gallery"),
-                       "--probes", str(root / "probe"), "--dp", "2",
-                       "--device", "cpu"])
+                       "--probes", str(root / "probe"), "--dp", "2"])

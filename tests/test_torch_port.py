@@ -297,8 +297,19 @@ def test_unported_options_raise():
             cfg.branches[0], kind="conv1d"),) + cfg.branches[1:]),
             device="cpu")
     model = UGaitNet(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        SignatureService(model, ("of", "gray"), mesh=object())
+    # mesh serving is ported (test_torch_mesh_serving.py); a mesh of one
+    # rank holds the whole gallery and answers as the one-device service
+    from ugaitnet_tpu_torch.parallel.sharding import Mesh
+    one_rank = Mesh(shape={"data": 1}, coords={"data": 0},
+                    groups={"data": None}, rank=0, world=1,
+                    device=torch.device("cpu"), backend="gloo")
+    codes = np.random.RandomState(0).randn(12, 8).astype(np.float32)
+    got, want = (SignatureService(model, ("of", "gray"), mesh=m)
+                 for m in (one_rank, None))
+    for svc in (got, want):
+        svc.set_gallery(codes, np.arange(12) % 5)
+    for a, b in zip(got.identify_codes(codes), want.identify_codes(codes)):
+        np.testing.assert_array_equal(a, b)
     with pytest.raises(ValueError, match="gallery_dtype"):
         SignatureService(model, ("of", "gray"), gallery_dtype="int4")
 

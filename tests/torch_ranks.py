@@ -17,6 +17,7 @@ from ugaitnet_tpu_torch.core import config as tconfig
 from ugaitnet_tpu_torch.models.network import UGaitNet
 from ugaitnet_tpu_torch.ops import collectives as C
 from ugaitnet_tpu_torch.parallel import sharding as S
+from ugaitnet_tpu_torch.parallel.faults import tp_planted
 from ugaitnet_tpu_torch.train.train_step import Batch, init_state
 from ugaitnet_tpu_torch.utils.weights import (flax_to_state_dict,
                                               state_dict_to_flax)
@@ -243,9 +244,176 @@ def collectives(rank, work):
           "mean": v.detach().numpy(), "mean_grad": u.grad.numpy()})
 
 
+def train_cli(rank, work, *argvs):
+    """The port's train CLI run once per argv, in turn, as one rank of the
+    spawned world (the CLI trains on the process group it finds); rank 0
+    saves each run's (experiment dir, latest checkpoint step) to
+    work/cli.pt."""
+    from ugaitnet_tpu_torch.cli import train
+    from ugaitnet_tpu_torch.core.checkpoint import latest_checkpoint_step
+    runs = []
+    for argv in argvs:
+        d = train.main(list(argv))
+        runs.append((d, latest_checkpoint_step(d)))
+    if rank == 0:
+        save(os.path.join(work, "cli.pt"), runs)
+
+
+def in_turn(rank, work, *jobs):
+    """Each (rank function, its further args) of ``jobs`` in turn, in the
+    one world: a world costs a spawn, so several checks share it."""
+    for fn, args in jobs:
+        fn(rank, work, *args)
+
+
 def cli_with_fault(rank, argv, fault):
     """The port's train CLI as one rank of the spawned world, with one of
     FAULTS planted (the CLI trains on the process group it finds)."""
     from ugaitnet_tpu_torch.cli import train
     with planted(fault):
         train.main(argv)
+
+
+# ------------------------------------------------------- tensor parallel
+
+def tp_state(mcfg, params, mesh, tcfg):
+    """A state from a flax tree, its shards placed on ``mesh`` before the
+    optimizer is made."""
+    from ugaitnet_tpu_torch.parallel.tensor import place_tp_model
+    model = UGaitNet(mcfg, device="cpu", seed=0)
+    if params is not None:
+        model.load_state_dict(flax_to_state_dict(params))
+    place_tp_model(model, mesh)
+    return init_state(model, tcfg)
+
+
+def whole_grads(state):
+    """Every gradient joined whole, as a flax tree."""
+    sd = {}
+    for name, p in state.model.named_parameters():
+        spec = getattr(p, "shard_spec", None)
+        g = p.grad.detach()
+        sd[name] = g if spec is None else \
+            C.gather_along(g, spec.group, spec.dim)
+    return state_dict_to_flax(sd)
+
+
+def tp_steps(rank, work, cases, faults=()):
+    """One step of the TP form per (name, dp, mp, mcfg) of ``cases``, from
+    the flax params work/in.pt["params"][name] on the global batch
+    work/in.pt["batch"], with the optimizer of in.pt["tcfg"]; then, for
+    the first case, each of ``faults`` planted.  Rank 0 saves {name:
+    (metrics, whole gradient, whole params after the step, {param: shard
+    shape}, {param: moment shapes})} to work/out.pt."""
+    from ugaitnet_tpu_torch.core.checkpoint import full_snapshot
+    from ugaitnet_tpu_torch.parallel.tensor import (make_mesh2d,
+                                                     make_tp_train_step)
+    inp = load(os.path.join(work, "in.pt"))
+    tcfg = tconfig.TrainConfig(**inp["tcfg"])
+    batch = batch_of(inp["batch"])
+    out = {}
+    runs = [(name, dp, mp, mcfg, None) for name, dp, mp, mcfg in cases]
+    runs += [(f, *cases[0][1:], f) for f in faults]
+    for name, dp, mp, mcfg, fault in runs:
+        mesh = make_mesh2d(dp, mp)
+        key = cases[0][0] if fault else name
+        st = tp_state(mcfg, inp["params"][key], mesh, tcfg)
+        with tp_planted(fault) if fault else contextlib.nullcontext():
+            _, m = make_tp_train_step(mcfg, tcfg, mesh)(
+                st, S.shard_batch(batch, mesh))
+        shapes = {n: tuple(p.shape) for n, p in st.model.named_parameters()}
+        moments = {n: [tuple(v.shape) for v in st.optimizer.state[p].values()
+                       if torch.is_tensor(v) and v.ndim]
+                   for n, p in st.model.named_parameters()}
+        snap = full_snapshot(st)
+        out[name] = (metrics_of(m), whole_grads(st),
+                     state_dict_to_flax(snap["model"]), shapes, moments)
+    if rank == 0:
+        save(os.path.join(work, "out.pt"), out)
+
+
+def tp_resume(rank, work, mcfg, dp, mp):
+    """Two Adam steps of the TP form on the global batch of work/in.pt,
+    uninterrupted, with a whole checkpoint published after the first
+    (rank 0, under work/ckpt); then a fresh TP state that loads it and
+    takes the second step.  Rank 0 saves (whole params uninterrupted,
+    whole params resumed) to work/resume.pt."""
+    from ugaitnet_tpu_torch.core import checkpoint as ckpt
+    from ugaitnet_tpu_torch.parallel.tensor import (make_mesh2d,
+                                                     make_tp_train_step)
+    inp = load(os.path.join(work, "in.pt"))
+    tcfg = tconfig.TrainConfig()
+    mesh = make_mesh2d(dp, mp)
+    local = S.shard_batch(batch_of(inp["batch"]), mesh)
+    step = make_tp_train_step(mcfg, tcfg, mesh)
+    st = tp_state(mcfg, None, mesh, tcfg)
+    step(st, local)
+    snap = ckpt.full_snapshot(st)
+    if rank == 0:
+        ckpt.save_checkpoint(os.path.join(work, "exp"), 1, snap)
+    dist.barrier()
+    step(st, local)
+    straight = ckpt.full_snapshot(st)["model"]
+    again = tp_state(mcfg, None, mesh, tcfg)
+    ckpt.load_full(again, ckpt.restore_raw(os.path.join(work, "exp"), 1))
+    step(again, local)
+    resumed = ckpt.full_snapshot(again)["model"]
+    if rank == 0:
+        save(os.path.join(work, "resume.pt"), (straight, resumed, snap))
+
+
+# ------------------------------------------------------------- serving
+
+def mesh_serving(rank, work, n):
+    """Over a data mesh of ``n`` ranks, each rank: ``knn_predict_sharded``
+    (float32, int8) on work/in.pt["knn"]; the mesh service against the
+    one-device service (both built here) on the 30-clip synthetic set:
+    identify_raw, then enroll (each code twice: exact ties), identify,
+    remove, identify; and ``encode_dataset`` with the mesh and without.
+    Each rank saves its results to work/serve<rank>.pt."""
+    from ugaitnet_tpu_torch.data.synthetic import make_synthetic_dataset
+    from ugaitnet_tpu_torch.eval.encode import encode_dataset
+    from ugaitnet_tpu_torch.eval.serving import SignatureService
+    from ugaitnet_tpu_torch.ops.knn import knn_predict_sharded
+    inp = load(os.path.join(work, "in.pt"))
+    mesh = S.make_mesh(n)
+    out = {"knn": {dt: knn_predict_sharded(*inp["knn"], mesh, k=3,
+                                           gallery_dtype=dt)
+                   for dt in ("float32", "int8")}}
+    ds = make_synthetic_dataset(num_subjects=5, videos_per_subject=2,
+                                subseqs_per_video=3, seed=7)
+    mods = ("of", "gray")
+    raw = {f"raw_{m}": ds.modalities[m].volumes[:8] for m in mods}
+    model = UGaitNet(inp["serve_cfg"], device="cpu")
+    model.load_state_dict(flax_to_state_dict(inp["serve_params"]))
+    ties = inp["ties"]
+    for dt in ("float32", "int8"):
+        res = {}
+        for name, m in (("one", None), ("mesh", mesh)):
+            svc = SignatureService(model, mods, knn=3, buckets=(4, 16),
+                                   gallery_dtype=dt, mesh=m)
+            svc.build_gallery(ds, batch_size=16)
+            r = {"rows": int(svc._gallery_codes.shape[0]),
+                 "capacity": svc._capacity,
+                 "identify": svc.identify_raw(raw)}
+            codes = svc.encode_raw(raw)
+            ptr = svc._gallery_codes.data_ptr()
+            svc.enroll(codes[:2], ds.labels[:2] + 100)      # in place
+            r["in_place"] = svc._gallery_codes.data_ptr() == ptr
+            r["enrolled"] = svc.identify_codes(codes)
+            r["removed"] = svc.remove(int(ds.labels[0]) + 100)
+            r["after_remove"] = svc.identify_codes(codes)
+            svc.enroll(codes[2:], ds.labels[2:8] + 100)     # a rebuild
+            r["capacity_after"] = svc._capacity
+            r["rebuilt"] = svc.identify_codes(codes)
+            # exact ties, one copy in each rank's block
+            svc.set_gallery(ties["codes"], ties["labels"])
+            r["ties"] = svc.identify_codes(ties["queries"])
+            res[name] = r
+        out[dt] = res
+    enc = UGaitNet(inp["encode_cfg"], device="cpu")
+    enc.load_state_dict(flax_to_state_dict(inp["encode_params"]))
+    out["encode"] = {name: encode_dataset(enc, ds, mods, batch_size=8,
+                                          mesh=m)[0]
+                     for name, m in (("one", None), ("mesh", mesh))}
+    save(os.path.join(work, f"serve{rank}.pt"), out)

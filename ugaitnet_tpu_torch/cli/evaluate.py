@@ -6,10 +6,20 @@ protocol or the TUM merged-code protocol, optionally sweeping modality
 combos.  ``--device`` (default ``cuda``) picks the device; the CPU runs only
 when asked for.
 
+``--dp N`` encodes data-parallel over N ranks (``eval/encode.py`` with a
+mesh): the command starts the ranks itself as ``cli.train --ndevices`` does
+(one card each over NCCL, an error on fewer cards; CPU ranks on gloo with
+``--device cpu``), runs as one rank under ``torchrun``, or as a rank of a
+process group its caller started (on its current card, so ranks may share
+one).  Every rank runs the protocols on the gathered codes; rank 0 prints
+and writes the results and the caches.
+
 Example:
   python -m ugaitnet_tpu_torch.cli.evaluate --experdir /exp/... --epoch -1 \\
       --gallery /data/casiab_ft_packed --probes /data/casiab_test_nm_packed \\
       --protocol casiab --knn 3 --typecode 3
+  # the same over 2 CPU ranks
+  python -m ugaitnet_tpu_torch.cli.evaluate ... --dp 2 --device cpu
 """
 
 from __future__ import annotations
@@ -18,6 +28,7 @@ import argparse
 import hashlib
 import json
 import os
+import sys
 
 import numpy as np
 
@@ -49,7 +60,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="modality presence mask at eval, e.g. 1 0")
     p.add_argument("--bs", type=int, default=128)
     p.add_argument("--dp", type=int, default=0,
-                   help="data-parallel encode devices (not ported yet)")
+                   help="encode data-parallel over N ranks (0 = one "
+                        "process)")
     p.add_argument("--outfile", type=str, default="")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device (default the CUDA card; 'cpu' only "
@@ -94,12 +106,34 @@ def ds_tag(path: str) -> str:
     return hashlib.sha1(seed.encode()).hexdigest()[:10]
 
 
+def _rank_main(rank: int, argv) -> None:
+    main(argv)
+
+
 def main(argv=None):
+    """The results (on rank 0 of ``--dp``; None where the command started
+    the ranks: they are in the results file)."""
+    argv = list(sys.argv[1:] if argv is None else argv)
     args = build_parser().parse_args(argv)
-    if args.dp > 0:
-        raise NotImplementedError(
-            "--dp is not ported yet (ROADMAP.md section 1, item 12: "
-            "multi-device and extras)")
+    if args.dp <= 0:
+        return _evaluate(args, None)
+    import torch.distributed as dist
+    from ugaitnet_tpu_torch.parallel import sharding as S
+    if dist.is_initialized():
+        # a rank of a world started before this call
+        return _evaluate(args, S.make_mesh(args.dp,
+                                           S.rank_devices(args.device)))
+    if not S.under_torchrun():
+        S.spawn_command(_rank_main, args.dp, argv, args.device)
+        return None
+    S.init_from_env(args.device)
+    try:
+        return _evaluate(args, S.make_mesh(args.dp))
+    finally:
+        dist.destroy_process_group()
+
+
+def _evaluate(args, mesh):
     from ugaitnet_tpu_torch.core.config import EvalConfig
     from ugaitnet_tpu_torch.data.pipeline import load_norm_stats
     from ugaitnet_tpu_torch.data.schema import GaitDataset
@@ -107,8 +141,10 @@ def main(argv=None):
         EncodedSet, encode_set, eval_all_combos, eval_camera_pairs,
         eval_openset)
 
-    model, state, mcfg, step = load_experiment(args.experdir, args.epoch,
-                                               device=args.device)
+    main_rank = mesh is None or mesh.is_main
+    model, state, mcfg, step = load_experiment(
+        args.experdir, args.epoch,
+        device=mesh.device if mesh is not None else args.device)
     if step == "best":
         # the 'best' checkpoint is overwritten as training improves; its
         # mtime in the cache tag keeps cached codes from outliving the
@@ -119,7 +155,7 @@ def main(argv=None):
     # models trained with --normstats persist their standardization; encode
     # with the same stats or the net sees inputs on the wrong scale
     norm_stats = load_norm_stats(args.experdir, modalities)
-    if norm_stats is not None:
+    if norm_stats is not None and main_rank:
         print("* using persisted norm_stats.npz standardization",
               flush=True)
     ecfg = EvalConfig(knn=args.knn, typecode=args.typecode,
@@ -139,7 +175,7 @@ def main(argv=None):
                 f"_mir{int(args.usemirror)}.npz")
             gallery = encode_set(model, gallery_ds, modalities, ecfg,
                                  mirror=args.usemirror, cache_path=cache,
-                                 norm_stats=norm_stats)
+                                 norm_stats=norm_stats, mesh=mesh)
         return gallery
 
     combo_memo = {}
@@ -151,7 +187,7 @@ def main(argv=None):
             results[name] = eval_all_combos(
                 model, gallery_ds, probe_ds, modalities, ecfg,
                 combo_gallery=args.allcombos, use_avg=args.useavg,
-                gallery_memo=combo_memo, norm_stats=norm_stats)
+                gallery_memo=combo_memo, norm_stats=norm_stats, mesh=mesh)
             continue
         # probe codes are cached per test dir like the gallery's
         mods_tag = ("all" if args.usemod is None else
@@ -163,7 +199,7 @@ def main(argv=None):
             f"_t{args.typecode}_bs{args.bs}_{mods_tag}.npz")
         probe = encode_set(model, probe_ds, modalities, ecfg,
                            use_mods=args.usemod, cache_path=probe_cache,
-                           norm_stats=norm_stats)
+                           norm_stats=norm_stats, mesh=mesh)
         # per-camera confusion matrices ride along with the results, like
         # the reference's all_test_results h5
         conf_all = {}
@@ -186,7 +222,7 @@ def main(argv=None):
             results[name] = eval_openset(get_gallery(), probe, knn=args.knn,
                                          use_avg=args.useavg,
                                          confusions=conf_all, device=dev)
-        if conf_all:
+        if conf_all and main_rank:
             # the filename carries the code caches' discriminators, so two
             # eval configurations never overwrite each other's matrices
             conf_file = os.path.join(
@@ -198,6 +234,8 @@ def main(argv=None):
             # a reserved sibling key, so results[name] keeps one shape
             results[name]["confusions_file"] = conf_file
 
+    if not main_rank:
+        return results
     out = json.dumps(results, indent=2, default=float)
     print(out)
     outfile = args.outfile or os.path.join(

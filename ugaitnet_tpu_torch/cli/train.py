@@ -3,12 +3,13 @@
 Port of ``ugaitnet_tpu/cli/train.py``: the same flags and the same
 ``configs_from_args``, plus ``--device`` (default ``cuda``; the CPU only
 when asked for).  ``--ndevices N`` trains data-parallel on N ranks,
-``--sp S`` / ``--ep E`` on a (max(1, N) x S) sequence- or expert-parallel
-mesh (``parallel/``).  The command starts the ranks itself, one process
-each (``--device cpu``: CPU ranks on gloo; else one card each, NCCL, and
-an error when the host has fewer cards), or runs as one rank under
-``torchrun``.  ``--tp`` and ``--pp`` raise ``NotImplementedError`` naming
-their ROADMAP item.
+``--sp S`` / ``--ep E`` / ``--tp M`` on a (max(1, N) x S) sequence-,
+expert- or tensor-parallel mesh (``parallel/``).  The command starts the
+ranks itself, one process each (``--device cpu``: CPU ranks on gloo; else
+one card each, NCCL, and an error when the host has fewer cards), or runs
+as one rank under ``torchrun``.  ``--pp P`` trains with branch placement
+in this one process over cards 0..P-1 (an error when the host has fewer),
+or P CPU devices with ``--device cpu``.
 
 Examples:
   # flagship CASIA-B 2-mod config (gaitset + sign_max)
@@ -37,6 +38,14 @@ Examples:
   python -m ugaitnet_tpu_torch.cli.train --synthetic --epochs 1 --bs 8 \\
       --ep 2 --moe 4 --device cpu
 
+  # tensor-parallel on a (2 x 2) mesh; branch placement over 2 devices;
+  # on a host with 4 cards: torchrun --nproc-per-node 4
+  # -m ugaitnet_tpu_torch.cli.train --ndevices 2 --tp 2
+  python -m ugaitnet_tpu_torch.cli.train --synthetic --epochs 1 --bs 8 \\
+      --ndevices 2 --tp 2 --device cpu
+  python -m ugaitnet_tpu_torch.cli.train --synthetic --epochs 1 --bs 8 \\
+      --pp 2 --device cpu
+
   # joint TUM-GAID + CASIA-B (BothDatasets) with per-source standardization,
   # then a fine-tune on CASIA-B from its best checkpoint (head surgery)
   python -m ugaitnet_tpu_torch.cli.train --datadir /data/tum_packed \\
@@ -52,9 +61,6 @@ from __future__ import annotations
 import argparse
 import os
 import sys
-
-ROADMAP_MULTI = "ROADMAP.md section 1, item 12 (multi-device and extras)"
-
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser("ugaitnet-torch-train")
@@ -118,14 +124,19 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--ndevices", type=int, default=0,
                    help="data-parallel ranks (0 = one process)")
     p.add_argument("--tp", type=int, default=0,
-                   help="model-parallel devices (not ported yet)")
+                   help="model-parallel ranks: a (ndevices x tp) mesh "
+                        "splitting GaitSet conv channels and the part head "
+                        "(parallel/tensor.py); 0 = off")
     p.add_argument("--sp", type=int, default=0,
                    help="sequence-parallel ranks: a (ndevices x sp) mesh "
                         "sharding the gait set (time) axis "
                         "(parallel/sequence.py); 0 = off, exclusive with "
                         "--tp/--ep")
     p.add_argument("--pp", type=int, default=0,
-                   help="branch-placement devices (not ported yet)")
+                   help="branch-placement devices: branch i trains on "
+                        "device i, the head stage and optimizer on device 0,"
+                        " in this one process (parallel/pipeline.py); "
+                        "0 = off, exclusive with the mesh modes")
     p.add_argument("--ep", type=int, default=0,
                    help="expert-parallel ranks: a (ndevices x ep) mesh "
                         "sharding the MoE expert axis (parallel/expert.py);"
@@ -223,8 +234,7 @@ def configs_from_args(args):
 
 
 def check_modes(tcfg, mcfg) -> None:
-    """The JAX CLI's exclusivity rules, then the flags whose paths the port
-    does not have yet."""
+    """The JAX CLI's exclusivity rules."""
     if sum(1 for d in (tcfg.tp_devices, tcfg.sp_devices,
                        tcfg.ep_devices) if d) > 1:
         raise SystemExit("--tp/--sp/--ep are exclusive (one 2D mesh each); "
@@ -236,16 +246,17 @@ def check_modes(tcfg, mcfg) -> None:
     if tcfg.ep_devices and not mcfg.has_moe:
         raise SystemExit("--ep requires --moe (there is no expert axis "
                          "to shard otherwise)")
-    for flag, n in (("tp", tcfg.tp_devices), ("pp", tcfg.pp_devices)):
-        if n:
-            raise NotImplementedError(f"--{flag} is not ported yet "
-                                      f"({ROADMAP_MULTI})")
 
 
 def mesh_axes(tcfg):
-    """[(axis, size), ...] of the run's mesh, None for one process: --ep
-    and --sp make a 2-D mesh with --ndevices (default 1) data ranks."""
+    """[(axis, size), ...] of the run's mesh, None for one process (and
+    for --pp): --ep, --sp and --tp make a 2-D mesh with --ndevices
+    (default 1) data ranks."""
     dp = max(1, tcfg.dp_devices)
+    if tcfg.pp_devices:
+        return None
+    if tcfg.tp_devices:
+        return [("data", dp), ("model", tcfg.tp_devices)]
     if tcfg.ep_devices:
         return [("data", dp), ("expert", tcfg.ep_devices)]
     if tcfg.sp_devices:
@@ -311,12 +322,7 @@ def main(argv=None):
                 # one process per rank, each running this command
                 print(f"* experiment dir: {experdir} ({world} ranks)",
                       flush=True)
-                devices = S.device_list(world, args.device)
-                # CPU ranks share the host's cores
-                threads = (max(1, (os.cpu_count() or 1) // world)
-                           if devices[0].type == "cpu" else None)
-                S.spawn(_rank_main, world, args=(argv,), devices=devices,
-                        threads=threads)
+                S.spawn_command(_rank_main, world, argv, args.device)
                 return experdir
             S.init_from_env(args.device)
             try:
@@ -324,7 +330,7 @@ def main(argv=None):
                               S.build_mesh(axes))
             finally:
                 dist.destroy_process_group()
-        mesh = S.build_mesh(axes, S.device_list(world, args.device))
+        mesh = S.build_mesh(axes, S.rank_devices(args.device))
     return _train(args, mcfg, dcfg, tcfg, experdir, mesh)
 
 

@@ -12,6 +12,12 @@ leaves a step that ``latest_checkpoint_step`` picks up (a step counts only
 once its ``state.pt`` exists), and an overwritten 'best' is either the old
 file or the new one.
 
+A multi-device state whose parameters are split over ranks (expert and
+tensor parallelism, ``parallel/``) is saved whole: ``full_snapshot`` joins
+every shard and its optimizer moments over the ranks that hold the others,
+and ``load_full`` takes this rank's slice of a whole payload.  One
+checkpoint then resumes in one process or on any mesh.
+
 Also provides "surgery" restore: load a checkpoint whose classifier head has
 a different class count, keeping every compatible weight (Keras
 load_weights(by_name=True, skip_mismatch=True) parity).
@@ -21,6 +27,7 @@ from __future__ import annotations
 
 import collections
 import concurrent.futures
+import dataclasses
 import os
 import re
 import tempfile
@@ -63,8 +70,7 @@ def _to_cpu(tree):
 def snapshot(state) -> Dict[str, Any]:
     """{"step", "model", "optimizer"} of a ``TrainState``, on the CPU; a bare
     module gives {"step": 0, "model": ...}; a payload of that form (a whole
-    expert-parallel state, ``parallel/expert.py:full_snapshot``) is copied
-    as it is."""
+    multi-device state, ``full_snapshot``) is copied as it is."""
     if isinstance(state, dict):
         return _to_cpu(state)
     if isinstance(state, torch.nn.Module):
@@ -72,6 +78,63 @@ def snapshot(state) -> Dict[str, Any]:
     return {"step": int(state.step),
             "model": _to_cpu(state.model.state_dict()),
             "optimizer": _to_cpu(state.optimizer.state_dict())}
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardSpec:
+    """Where a parameter's shard sits in the whole tensor: rows
+    [``start``, ``start`` + its size) along ``dim``; the other shards are
+    held by the ranks of ``group``, in rank order."""
+    group: Any
+    dim: int
+    start: int
+
+
+def _shards(model: torch.nn.Module):
+    """(name, parameter, its index in the optimizer's state) of every
+    parameter that carries a ``shard_spec``."""
+    return [(name, p, i) for i, (name, p) in
+            enumerate(model.named_parameters())
+            if getattr(p, "shard_spec", None) is not None]
+
+
+def full_snapshot(state) -> Dict[str, Any]:
+    """``snapshot`` of a ``TrainState`` whose sharded parameters (and their
+    moments, the tensors of their shape in the optimizer's state) are
+    joined whole.  Every rank of the mesh calls it, in the same order."""
+    from ugaitnet_tpu_torch.ops.collectives import gather_along
+    snap = snapshot(state)
+    opt_state = state.optimizer.state_dict()["state"]
+    for name, p, i in _shards(state.model):
+        spec = p.shard_spec
+        snap["model"][name] = gather_along(p.detach(), spec.group,
+                                           spec.dim).cpu()
+        for k, v in opt_state.get(i, {}).items():
+            if torch.is_tensor(v) and v.shape == p.shape:
+                snap["optimizer"]["state"][i][k] = gather_along(
+                    v, spec.group, spec.dim).cpu()
+    return snap
+
+
+def load_full(state, raw: Dict[str, Any]) -> None:
+    """Load a whole payload into a state with sharded parameters, each
+    shard and its moments sliced to this rank's rows, in place."""
+    model_sd = dict(raw["model"])
+    opt_sd = raw.get("optimizer")
+    for name, p, i in _shards(state.model):
+        spec = p.shard_spec
+        whole = model_sd[name].shape
+        model_sd[name] = model_sd[name].narrow(spec.dim, spec.start,
+                                               p.shape[spec.dim])
+        if opt_sd is not None:
+            for k, v in opt_sd["state"].get(i, {}).items():
+                if torch.is_tensor(v) and v.shape == whole:
+                    opt_sd["state"][i][k] = v.narrow(
+                        spec.dim, spec.start, p.shape[spec.dim])
+    state.model.load_state_dict(model_sd)
+    if opt_sd is not None:
+        state.optimizer.load_state_dict(opt_sd)
+    state.step = int(raw.get("step", state.step))
 
 
 def _publish(path: str, payload: Dict[str, Any]) -> str:

@@ -10,6 +10,13 @@ video ids + cams on the host.
 typecode parity (:157-166): 1 -> "signature", 3 -> "flatten", else "code".
 Rank-3 part signatures are flattened per sample, so kNN sees one vector per
 subsequence.
+
+With a ``mesh`` (``parallel/sharding.py``; every rank calls, with the same
+arguments and its own replica of the model) each rank encodes its rows of
+every batch: the batch-axis L2 of the signature sums over the data ranks,
+so the codes are the one-process encode's, and the codes are gathered to
+every rank.  A tensor-parallel model (``parallel/tensor.py``) encodes its
+strip of parts, joined over the model group.
 """
 
 from __future__ import annotations
@@ -23,8 +30,10 @@ from ugaitnet_tpu_torch.core.config import DataConfig
 from ugaitnet_tpu_torch.data.pipeline import GaitPipeline
 from ugaitnet_tpu_torch.data.sampler import SequentialSampler
 from ugaitnet_tpu_torch.data.schema import GaitDataset
-from ugaitnet_tpu_torch.models.network import UGaitNet
+from ugaitnet_tpu_torch.models.network import UGaitNet, tp_strips
 from ugaitnet_tpu_torch.ops.augment import mirror_volume
+from ugaitnet_tpu_torch.ops.collectives import (DATA_AXIS, gather_along,
+                                                gather_rows_nograd)
 
 TYPECODE_TAP = {1: "signature", 3: "flatten"}
 
@@ -37,16 +46,31 @@ def _tap(out: Dict[str, torch.Tensor], typecode: int) -> torch.Tensor:
     return x
 
 
+def _tap_whole(out: Dict[str, torch.Tensor], typecode: int,
+               model: UGaitNet) -> torch.Tensor:
+    """``_tap``, with a tensor-parallel model's strip joined whole."""
+    x = _tap(out, typecode)
+    name = TYPECODE_TAP.get(typecode, "code")
+    tp = getattr(model, "tp", None)
+    if name not in out:
+        name = "signature"
+    if name in tp_strips(model.config, tp):
+        x = gather_along(x, tp.group, 1)      # parts-major flattened strips
+    return x
+
+
 def encode_dataset(model: UGaitNet, ds: GaitDataset,
                    modalities: Sequence[str],
                    typecode: int = 3, batch_size: int = 128,
                    use_mods: Optional[Sequence[float]] = None,
                    mirror: bool = False,
                    indices: Optional[np.ndarray] = None,
-                   norm_stats=None
+                   norm_stats=None, mesh=None
                    ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
     """Returns (codes (N,D), labels, video_ids, cams) in raw label space,
-    encoded on ``model``'s device.
+    encoded on ``model``'s device.  mesh: encode data-parallel over the
+    mesh's "data" axis (module docstring); batch_size must divide by its
+    size.
 
     use_mods masks whole modalities at encode time (the eval scripts'
     use_mod1/use_mod2 args and the TUM all-combos protocol).  mirror=True
@@ -69,6 +93,21 @@ def encode_dataset(model: UGaitNet, ds: GaitDataset,
             f"{'set' if indices is not None else 'absent'})")
     if use_mods is None:
         use_mods = [1.0] * len(modalities)
+    group, ndev, shard = None, 1, slice(None)
+    if mesh is not None:
+        group, ndev = mesh.group(DATA_AXIS), mesh.size(DATA_AXIS)
+        if batch_size % ndev:
+            raise ValueError(
+                f"encode batch_size {batch_size} not divisible by the "
+                f"{ndev}-device data axis; the padded trailing batch could "
+                "not shard evenly")
+        b = batch_size // ndev
+        shard = slice(mesh.index(DATA_AXIS) * b,
+                      (mesh.index(DATA_AXIS) + 1) * b)
+
+    def encode(vols, flags):
+        out = model(vols, flags, train=False, group=group)
+        return gather_rows_nograd(_tap_whole(out, typecode, model), group)
 
     codes, metas = [], []
     with torch.inference_mode():
@@ -85,18 +124,17 @@ def encode_dataset(model: UGaitNet, ds: GaitDataset,
                     [batch_idx, np.full(batch_size - real, batch_idx[-1])])
                 valid = torch.zeros(batch_size, device=model.device)
                 valid[:real] = 1.0
-            vols, flags, _ = pipe.load(batch_idx, expand=1)
+            # a mesh rank loads and encodes its own rows of the batch
+            vols, flags, _ = pipe.load(batch_idx[shard], expand=1)
             flags = [f * u for f, u in zip(flags, use_mods)]
             if valid is not None:
-                flags = [f * valid for f in flags]
-            codes.append(_tap(model(vols, flags, train=False),
-                                  typecode)[:real].cpu())
+                flags = [f * valid[shard] for f in flags]
+            codes.append(encode(vols, flags)[:real].cpu())
             metas.append(batch_idx[:real])
             if mirror:
                 mvols = [mirror_volume(v, is_of=(m == "of"))
                          for v, m in zip(vols, modalities)]
-                codes.append(_tap(model(mvols, flags, train=False),
-                                      typecode)[:real].cpu())
+                codes.append(encode(mvols, flags)[:real].cpu())
                 metas.append(batch_idx[:real])
 
     sel = pipe.indices[np.concatenate(metas)]

@@ -68,13 +68,14 @@ def encode_set(model: UGaitNet, ds: GaitDataset,
                use_mods: Optional[Sequence[float]] = None,
                mirror: bool = False,
                cache_path: Optional[str] = None,
-               norm_stats=None) -> EncodedSet:
+               norm_stats=None, mesh=None) -> EncodedSet:
     """Embed a dataset, with the reference's gallery-code caching
     (codes_gallery_*.h5 pattern, mj_testUWYHGaitNet_open_casiab.py:291-324).
     The cache file is the JAX package's, key included: the key pins
     everything that changes the codes (batch_size too, since under
     l2_mode="reference" the signature L2 reduces over the batch axis), so
-    reusing one cache_path across configurations fails loudly."""
+    reusing one cache_path across configurations fails loudly.  mesh:
+    encode data-parallel (``encode_dataset``); rank 0 writes the cache."""
     key = (f"typecode={cfg.typecode};mirror={int(mirror)};"
            f"bs={cfg.batch_size};norm={int(norm_stats is not None)};"
            f"use_mods={list(use_mods) if use_mods is not None else 'all'}")
@@ -83,9 +84,9 @@ def encode_set(model: UGaitNet, ds: GaitDataset,
     codes, labels, vids, cams = encode_dataset(
         model, ds, modalities, typecode=cfg.typecode,
         batch_size=cfg.batch_size, use_mods=use_mods, mirror=mirror,
-        norm_stats=norm_stats)
+        norm_stats=norm_stats, mesh=mesh)
     es = EncodedSet(codes, labels, vids, cams)
-    if cache_path:
+    if cache_path and (mesh is None or mesh.is_main):
         es.save(cache_path, config_key=key)
     return es
 
@@ -208,14 +209,15 @@ def eval_all_combos(model: UGaitNet, gallery_ds: GaitDataset,
                     cfg: EvalConfig, combo_gallery: bool = False,
                     use_avg: bool = True,
                     gallery_memo: Optional[Dict] = None,
-                    norm_stats=None) -> Dict[str, Dict[str, float]]:
+                    norm_stats=None, mesh=None
+                    ) -> Dict[str, Dict[str, float]]:
     """Probe every modality-presence combo (--allcombostest); optionally
     build the gallery from all combos stacked (--allcombos).
 
     gallery_memo: pass the same dict across calls (one per probe set) to
     encode the gallery once instead of per probe set; it is keyed on
     everything that shaped the gallery, so a changed configuration
-    rebuilds it."""
+    rebuilds it.  mesh: encode data-parallel (``encode_set``)."""
     memo_key = (gallery_ds.name, combo_gallery, use_avg, cfg.typecode,
                 cfg.batch_size)
     if gallery_memo is not None and gallery_memo.get("key") == memo_key:
@@ -224,7 +226,8 @@ def eval_all_combos(model: UGaitNet, gallery_ds: GaitDataset,
     else:
         if combo_gallery:
             parts = [encode_set(model, gallery_ds, modalities, cfg,
-                                use_mods=c, norm_stats=norm_stats)
+                                use_mods=c, norm_stats=norm_stats,
+                                mesh=mesh)
                      for c in modality_combos(len(modalities))]
             gallery = EncodedSet(
                 codes=np.concatenate([p.codes for p in parts]),
@@ -233,7 +236,7 @@ def eval_all_combos(model: UGaitNet, gallery_ds: GaitDataset,
                 cams=np.concatenate([p.cams for p in parts]))
         else:
             gallery = encode_set(model, gallery_ds, modalities, cfg,
-                                 norm_stats=norm_stats)
+                                 norm_stats=norm_stats, mesh=mesh)
         merged_gallery = _merge_codes_per_video(gallery, use_avg)
         if gallery_memo is not None:
             gallery_memo["key"] = memo_key
@@ -242,7 +245,7 @@ def eval_all_combos(model: UGaitNet, gallery_ds: GaitDataset,
     results = {}
     for combo in modality_combos(len(modalities)):
         probe = encode_set(model, probe_ds, modalities, cfg,
-                           use_mods=combo, norm_stats=norm_stats)
+                           use_mods=combo, norm_stats=norm_stats, mesh=mesh)
         name = "+".join(m for m, c in zip(modalities, combo) if c)
         results[name] = eval_openset(gallery, probe, knn=cfg.knn,
                                      use_avg=use_avg,

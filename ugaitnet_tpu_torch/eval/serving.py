@@ -1,9 +1,9 @@
 """Serving: identification against a gallery held on the device.
 
-Port of ``ugaitnet_tpu/eval/serving.py`` for float32 galleries on one
-device.  The gallery code matrix lives on the card; one call takes raw
-quantized clip volumes -> dequantize -> embed -> distance matmul -> top-k
-vote and returns labels + neighbor distances.  Query batches are padded to
+Port of ``ugaitnet_tpu/eval/serving.py``.  The gallery code matrix lives
+on the card; one call takes raw quantized clip volumes -> dequantize ->
+embed -> distance matmul -> top-k vote and returns labels + neighbor
+distances.  Query batches are padded to
 fixed bucket sizes, so every query of a bucket runs the same shapes.
 
 Incremental enrollment: the gallery lives in capacity-padded device buffers
@@ -21,8 +21,17 @@ host memory too.
 distance cross term as an int8 product: a quarter of the bytes per query,
 four times the rows per card.  ``quantized=True`` encodes through the int8
 branches (``ops/quantize.py``), calibrated on ``calib_volumes``.  The
-encoder exports with ``eval/export.py``.  ``mesh=`` (row-sharded galleries)
-raises ``NotImplementedError`` (ROADMAP.md section 1, item 12).
+encoder exports with ``eval/export.py``.
+
+``mesh=`` (a ``parallel/sharding.py`` mesh) holds a gallery too large for
+one card: every rank builds the service and calls its methods together
+(SPMD), with the same arguments.  The model and the host masters are
+replicated; each rank's card buffers hold its block of the rows of the
+capacity (rounded up to a multiple of the mesh's first axis), and
+``enroll`` / ``remove`` write only the rows a rank owns.  A query is encoded
+on every rank, scored against each rank's rows, and the ranks' top-k merge
+by (distance, row) (``ops/knn.py:sharded_nearest``): the results are the
+one-device service's, on every rank.
 """
 
 from __future__ import annotations
@@ -42,7 +51,7 @@ from ugaitnet_tpu_torch.eval.export import _raw_specs
 from ugaitnet_tpu_torch.models.network import UGaitNet
 from ugaitnet_tpu_torch.ops.knn import (nearest, pairwise_l2,
                                         pairwise_l2_int8, quantize_gallery,
-                                        squared_norms, vote)
+                                        sharded_nearest, squared_norms, vote)
 from ugaitnet_tpu_torch.ops.metrics import eer_verif_dist
 from ugaitnet_tpu_torch.ops.quantize import encode_int8, quantize_model_params
 
@@ -78,10 +87,6 @@ class SignatureService:
         if gallery_dtype not in ("float32", "int8"):
             raise ValueError(f"gallery_dtype must be float32 or int8, "
                              f"got {gallery_dtype!r}")
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh serving is not ported yet (ROADMAP.md section 1, item "
-                "12: multi-device and extras)")
         # The reference-parity signature normalizes over the BATCH axis
         # (l2_mode="reference"), so codes would depend on what else is in
         # the batch.  Serve with the per-sample normalization instead: it
@@ -93,6 +98,14 @@ class SignatureService:
                                                l2_mode="feature")
         self.model = model
         self.device = model.device
+        # the mesh's first axis splits the rows: this rank holds block
+        # ``_shard`` of ``_shards``
+        self.mesh = mesh
+        self._shards, self._shard, self._group = 1, 0, None
+        if mesh is not None:
+            axis = mesh.axis_names[0]
+            self._shards, self._shard = mesh.size(axis), mesh.index(axis)
+            self._group = mesh.group(axis)
         self.modalities = tuple(modalities)
         self.typecode = typecode
         self.knn = knn
@@ -189,10 +202,15 @@ class SignatureService:
         d2 = self._distances(codes)
         # dead slots (capacity padding + removed identities) carry +1e12
         d2 = d2 + self._gallery_bias[None, :]
-        d2k, idx = nearest(d2, k)
+        if self._group is None:
+            d2k, idx = nearest(d2, k)
+            labels = self._gallery_dense[idx]
+        else:
+            d2k, labels = sharded_nearest(d2, self._gallery_dense, k,
+                                          self._row0(), self._group)
         # the class CAPACITY, not the live count: unused class slots never
         # get a vote (dead rows never reach a top-k), so argmax skips them
-        pred = vote(self._gallery_dense[idx], self._label_capacity)
+        pred = vote(labels, self._label_capacity)
         return pred, torch.sqrt(d2k)
 
     # ------------------------------------------------------------------
@@ -207,12 +225,22 @@ class SignatureService:
         self._host_codes = codes
         self._host_labels = labels
         self._live = np.ones(len(codes), bool)
-        self._install(_next_pow2(len(codes)),
+        self._install(self._fit_capacity(len(codes)),
                       _next_pow2(len(np.unique(labels))))
         if warmup:
             self.warmup()
 
     # -- capacity machinery --------------------------------------------
+    def _fit_capacity(self, rows: int) -> int:
+        """The power-of-two capacity, rounded up to a multiple of the
+        mesh's first axis (the row blocks must be equal)."""
+        cap = _next_pow2(rows)
+        return cap + (-cap) % self._shards
+
+    def _row0(self) -> int:
+        """The first global row of this rank's block."""
+        return self._shard * (self._capacity // self._shards)
+
     def _install(self, capacity: int, label_capacity: int) -> None:
         """(Re)build the device buffers at the given capacities, compacting
         tombstoned slots out of the host masters."""
@@ -229,10 +257,11 @@ class SignatureService:
         int8 = self.gallery_dtype == "int8"
         dev = self.device
         # dead slots: zero codes, scale 1, |g|^2 0 (the bias excludes them)
-        codes = torch.zeros((capacity, d), device=dev,
+        rows = capacity // self._shards
+        codes = torch.zeros((rows, d), device=dev,
                             dtype=torch.int8 if int8 else torch.float32)
-        sq = torch.zeros(capacity, device=dev)
-        scale = torch.ones(capacity, device=dev) if int8 else None
+        sq = torch.zeros(rows, device=dev)
+        scale = torch.ones(rows, device=dev) if int8 else None
         self._gallery_codes, self._gallery_scale, self._gallery_sq = \
             codes, scale, sq
         for s in range(0, n, _INSTALL_ROWS):
@@ -240,8 +269,16 @@ class SignatureService:
         self._refresh_meta()
 
     def _write_rows(self, pos: int, rows: np.ndarray) -> None:
-        """Write float32 code rows into the card's buffers at ``pos``, in
-        place (int8: quantized per row on the card)."""
+        """Write float32 code rows into the card's buffers at global row
+        ``pos``, in place (int8: quantized per row on the card); on a mesh,
+        the rows this rank's block holds."""
+        row0 = self._row0()
+        lo = max(pos, row0)
+        hi = min(pos + len(rows), row0 + self._capacity // self._shards)
+        if lo >= hi:
+            return
+        rows = rows[lo - pos:hi - pos]
+        pos = lo - row0
         x = torch.from_numpy(np.ascontiguousarray(rows)).to(self.device)
         end = pos + len(rows)
         if self.gallery_dtype == "int8":
@@ -267,8 +304,10 @@ class SignatureService:
         dense[live_idx] = dense_live
         bias = np.full(self._capacity, 1e12, np.float32)
         bias[live_idx] = 0.0
-        self._gallery_dense = torch.from_numpy(dense).to(self.device)
-        self._gallery_bias = torch.from_numpy(bias).to(self.device)
+        block = slice(self._row0(),
+                      self._row0() + self._capacity // self._shards)
+        self._gallery_dense = torch.from_numpy(dense[block]).to(self.device)
+        self._gallery_bias = torch.from_numpy(bias[block]).to(self.device)
         self._gallery_size = int(len(live_idx))
 
     # -- incremental enrollment ----------------------------------------
@@ -296,7 +335,7 @@ class SignatureService:
         self._host_labels = np.concatenate([self._host_labels, labels])
         self._live = np.concatenate([self._live, np.ones(n, bool)])
         if not in_place:
-            self._install(_next_pow2(int(self._live.sum())),
+            self._install(self._fit_capacity(int(self._live.sum())),
                           _next_pow2(nuniq))
             return
         self._write_rows(self._rows_used, codes)

@@ -29,6 +29,15 @@ over them, gathered over the group and maxed again; a global max over T is
 the max of the ranks' maxima.  Expert parallelism (``parallel/expert.py``)
 sets ``expert_group`` and keeps experts [``expert_start``, ``expert_start``
 + E_local) of ``expert_proj``.
+
+Tensor parallelism (``parallel/tensor.py``) sets ``model_group`` and
+splits conv pairs: the convs named in ``tp_split`` hold a share of their
+output channels (a_conv1/3/5, b_conv1/3, whose input goes through
+``copy_in``) or of their input channels (a_conv2/4/6, b_conv2/4, whose
+partial output an all-reduce over the group, ``reduce_out``, restores
+before the pool, set pool, residual add or leaky ReLU that follows).
+With ``part_range`` set the branch projects only parts [p0, p1) and
+returns that strip.
 """
 
 from __future__ import annotations
@@ -41,7 +50,8 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
-from ugaitnet_tpu_torch.ops.collectives import all_gather_rows
+from ugaitnet_tpu_torch.ops.collectives import (all_gather_rows, copy_in,
+                                                reduce_out)
 from ugaitnet_tpu_torch.ops.moe import moe_capacity, moe_project
 from ugaitnet_tpu_torch.ops.pooling import max_pool_2x2
 
@@ -114,6 +124,7 @@ class GaitSetBranch(nn.Module):
         self.moe_capacity_factor = moe_capacity_factor
         self.seq_group = None
         self.expert_group, self.expert_start = None, 0
+        self.model_group, self.tp_split, self.part_range = None, (), None
         # (name, in, out, kernel) in the JAX module's creation order
         a_specs = [(in_channels, c1, 5), (c1, c1, 3), (c1, c2, 3),
                    (c2, c2, 3), (c2, c3, 3), (c3, c3, 3)]
@@ -145,6 +156,17 @@ class GaitSetBranch(nn.Module):
         def lrelu(v):
             return torch.maximum(v, alpha * v)
 
+        mg = self.model_group
+
+        def col(name, v):       # output channels split: copy in
+            if name in self.tp_split:
+                v = copy_in(v, mg)
+            return getattr(self, name)(v)
+
+        def row(name, v):       # input channels split: reduce out
+            out = getattr(self, name)(v)
+            return reduce_out(out, mg) if name in self.tp_split else out
+
         b, t, h, w, c = x.shape
         # (B, T, H, W, C) -> (B*T, C, H, W); cast before padding, as JAX
         x = x.permute(0, 1, 4, 2, 3).reshape(b * t, c, h, w).to(self.dtype)
@@ -152,29 +174,29 @@ class GaitSetBranch(nn.Module):
         x = F.pad(x, (p, p, p, p))
 
         # frame stream, stage 1
-        a = lrelu(self.a_conv1(x))
-        a = self.a_conv2(a)
+        a = lrelu(col("a_conv1", x))
+        a = row("a_conv2", a)
         a = lrelu(max_pool_2x2(a))                     # (B*T, c1, 32, 32)
 
         # set stream, stage 1
         sq = self.seq_group
         sb = _set_max(a, b, sq)
-        sb = lrelu(self.b_conv1(sb))
-        sb = self.b_conv2(sb)
+        sb = lrelu(col("b_conv1", sb))
+        sb = row("b_conv2", sb)
         sb = lrelu(max_pool_2x2(sb))                   # (B, c2, 16, 16)
 
         # frame stream, stage 2
-        a = lrelu(self.a_conv3(a))
-        a = self.a_conv4(a)
+        a = lrelu(col("a_conv3", a))
+        a = row("a_conv4", a)
         a = lrelu(max_pool_2x2(a))                     # (B*T, c2, 16, 16)
 
         sb = sb + _set_max(a, b, sq)                    # residual add
-        sb = lrelu(self.b_conv3(sb))
-        sb = lrelu(self.b_conv4(sb))                   # (B, c3, 16, 16)
+        sb = lrelu(col("b_conv3", sb))
+        sb = lrelu(row("b_conv4", sb))                 # (B, c3, 16, 16)
 
         # frame stream, stage 3 + final set pool
-        a = lrelu(self.a_conv5(a))
-        a = self.a_conv6(a)
+        a = lrelu(col("a_conv5", a))
+        a = row("a_conv6", a)
         sa = lrelu(_set_max(a, b, sq))                  # (B, c3, 16, 16)
 
         sb = sb + sa
@@ -198,6 +220,9 @@ class GaitSetBranch(nn.Module):
                 expert_start=self.expert_start)
             return out.reshape(b, p, -1), aux
 
+        if self.part_range is not None:
+            p0, p1 = self.part_range
+            parts = copy_in(parts, mg)[:, p0:p1]
         # bf16 in, float32 accumulation and output (preferred_element_type)
         return torch.einsum("bpc,pcd->bpd", parts.to(self.dtype).float(),
                             self.part_proj.to(self.dtype).float())

@@ -16,13 +16,26 @@ mesh, and its GaitSet set pools close over the axis's group.  ``group`` in
 ``forward`` is the data ranks' group of the global data-parallel form
 (``parallel/sharding.py``): the batch-axis L2 of the signature and MoE
 routing then span the global batch.
+
+Under tensor parallelism (``parallel/tensor.py:place_tp_model``) the net
+carries ``tp`` (its model group) and each GaitSet branch returns this
+rank's strip of parts.  The head keeps the strip where every op is local
+to a part (gating, the merge, both signature L2 forms, and the id head,
+whose ``classprob`` rows are split the same way and close with an
+all-reduce), and joins the strips over the model group before a layer that
+reads every part (``flatten_output``, ``extra_dense`` and its dropcode,
+the aux heads).  ``tp_strips`` names the outputs that stay strips.
+
+``UGaitHead`` is the head alone over branch embeddings (pipeline
+parallelism, ``parallel/pipeline.py``), sharing a net's head layers.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, FrozenSet, List, Optional, Sequence
 
 import torch
+import torch.nn.functional as TF
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
@@ -34,6 +47,8 @@ from ugaitnet_tpu_torch.models.branches import (Conv2DBranch, Conv3DBranch,
                                                 keyed_dropout)
 from ugaitnet_tpu_torch.models.gaitset import GaitSetBranch
 from ugaitnet_tpu_torch.ops import fusion as F
+from ugaitnet_tpu_torch.ops.collectives import (copy_in, gather_parts,
+                                                reduce_out)
 from ugaitnet_tpu_torch.ops.preprocess import frames_to_planes
 
 BRANCH_KINDS = ("gaitset", "conv2d", "conv3d")
@@ -101,19 +116,60 @@ def branch_width(b: BranchConfig) -> int:
     return b.ndense_units
 
 
+def tp_strips(cfg: ModelConfig, tp) -> FrozenSet[str]:
+    """The head's outputs that hold this model rank's strip of parts (dim
+    1) under tensor parallelism ``tp`` (none without it, or where the part
+    projection is whole or a branch flattens its parts)."""
+    if tp is None or not tp.parts_split or any(
+            b.kind == "gaitset" and b.flatten_output for b in cfg.branches):
+        return frozenset()
+    keys = {"branches", "fused"}
+    if not (cfg.extra_dense and cfg.postriplet == 2):
+        keys.add("signature")
+    if not cfg.extra_dense:
+        keys.add("flatten")
+    return frozenset(keys)
+
+
+def _id_logits(layer: Dense, x: torch.Tensor, x_strip: bool, tp
+               ) -> torch.Tensor:
+    """``layer(x)``; under tensor parallelism with the layer's input rows
+    split (``tp_cols``), this rank's partial product summed over the model
+    group.  ``x_strip``: x holds this rank's strip, the rows it needs."""
+    cols = getattr(layer, "tp_cols", None)
+    if tp is None or cols is None:
+        if x_strip:
+            x = gather_parts(x, tp.group)
+        return layer(x)
+    if not x_strip:
+        x = copy_in(x, tp.group)[:, cols[0]:cols[1]]
+    dt = layer.dtype
+    return reduce_out(TF.linear(x.to(dt), layer.weight.to(dt)),
+                      tp.group) + layer.bias.to(dt)
+
+
 def _head_forward(cfg: ModelConfig, embeddings: Sequence[torch.Tensor],
-                  use_flags: Sequence[torch.Tensor], net: "UGaitNet",
+                  use_flags: Sequence[torch.Tensor], net: nn.Module,
                   train: bool = False, key=None, group=None
                   ) -> Dict[str, object]:
     """Everything after the branches: gating, merge, signature, the extra
     dense head, the id head and the aux heads, with ``net``'s layers.
     ``key`` keys the dropcode mask in train mode; ``group`` spans the
     signature's batch-axis L2 over the data ranks."""
+    tp = getattr(net, "tp", None)
+    strips = tp_strips(cfg, tp)
+
+    def whole(x):
+        """A strip joined over the model group (the whole tensor as is)."""
+        return gather_parts(x, tp.group) if strips else x
+
     batch = embeddings[0].shape[0]
     gated = []
     for e, u, bcfg in zip(embeddings, use_flags, cfg.branches):
         if bcfg.kind == "gaitset" and bcfg.flatten_output:
             # the BothDatasets variant: per-sample flatten + L2
+            if tp is not None and tp.parts_split:
+                e = gather_parts(e, tp.group)
             e = F.l2_normalize(e.reshape(batch, -1), dim=-1)
         if cfg.norm_before_merge:
             e = F.l2_normalize(e, dim=-1)
@@ -135,11 +191,11 @@ def _head_forward(cfg: ModelConfig, embeddings: Sequence[torch.Tensor],
         if cfg.postriplet == 2:
             # the Dense before the triplet tap: its per-row L2 is "code"
             # and the signature
-            x = act(net.extra_dense(fused))
+            x = act(net.extra_dense(whole(fused)))
             sig = F.l2_normalize(x, dim=-1)
             out["code"] = sig
         else:
-            x = act(net.extra_dense(sig))
+            x = act(net.extra_dense(whole(sig)))
             out["code"] = x
         head_in = x
         if train and cfg.dropout_code > 0.0:
@@ -153,13 +209,14 @@ def _head_forward(cfg: ModelConfig, embeddings: Sequence[torch.Tensor],
     out["flatten"] = flat
 
     if net.classprob is not None:
-        logits = net.classprob(flat).to(torch.float32)
+        logits = _id_logits(net.classprob, flat, "flatten" in strips,
+                            tp).to(torch.float32)
         out["classprob_logits"] = logits
         out["classprob"] = torch.softmax(logits, dim=-1)
         if cfg.aux_losses:
             out["aux_logits"] = [
                 getattr(net, f"classprob_{b.modality}")(
-                    g.reshape(batch, -1)).to(torch.float32)
+                    whole(g).reshape(batch, -1)).to(torch.float32)
                 for g, b in zip(gated, cfg.branches)]
     return out
 
@@ -193,6 +250,7 @@ class UGaitNet(nn.Module):
             self.dropcode_seed = draw_seed(gen)
             flat_dim = width
         self.classprob = None
+        self.tp = None
         if config.nclasses > 0:
             self.classprob = Dense(config.signature_parts * flat_dim,
                                    config.nclasses, dt, gen)
@@ -253,3 +311,34 @@ class UGaitNet(nn.Module):
         if moe_aux:
             out["moe_aux"] = sum(moe_aux)
         return out
+
+
+class UGaitHead(nn.Module):
+    """The post-branch stage over branch embeddings (pipeline parallelism,
+    ``parallel/pipeline.py``): ``_head_forward`` with ``net``'s head layers,
+    shared, under the same names, so one state_dict serves both and a step
+    through the head trains the net's layers.  ``forward(embeddings,
+    use_flags, train, key, group)`` gives the net's outputs on the same
+    embeddings, dropcode masks included."""
+
+    def __init__(self, net: UGaitNet):
+        super().__init__()
+        self.config = net.config
+        self.extra_dense = net.extra_dense
+        if net.extra_dense is not None:
+            self.dropcode_seed = net.dropcode_seed
+        self.classprob = net.classprob
+        if net.classprob is not None and net.config.aux_losses:
+            for b in net.config.branches:
+                name = f"classprob_{b.modality}"
+                setattr(self, name, getattr(net, name))
+        self.tp = None
+
+    def forward(self, embeddings: Sequence[torch.Tensor],
+                use_flags: Sequence[torch.Tensor],
+                train: Optional[bool] = None, key=None, group=None
+                ) -> Dict[str, object]:
+        if train is None:
+            train = self.training
+        return _head_forward(self.config, embeddings, use_flags, self,
+                             train, key, group)

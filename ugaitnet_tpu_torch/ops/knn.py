@@ -1,7 +1,8 @@
 """kNN gallery search on the device.
 
-Port of ``ugaitnet_tpu/ops/knn.py`` on one device: the float32 paths and the
-int8 gallery (``quantize_gallery``, ``pairwise_l2_int8``).  The probes x
+Port of ``ugaitnet_tpu/ops/knn.py``: the float32 paths and the int8 gallery
+(``quantize_gallery``, ``pairwise_l2_int8``) on one device, and
+``knn_predict_sharded``, the gallery's rows split over the ranks of a mesh.  The probes x
 gallery distances are one matmul, a top-k picks the neighbors and the vote
 is a one-hot sum; only the final labels come back to the host.
 
@@ -27,6 +28,12 @@ as the float does, and the index breaks ties, lower first.
 Vote parity: sklearn with uniform weights sums votes per class and takes the
 lowest class on ties; the one-hot sum over sorted unique class ids and
 ``torch.argmax`` (first maximum) match it.
+
+Row-sharded galleries (``knn_predict_sharded``, and the mesh service of
+``eval/serving.py``): every rank scores its rows and keeps its k nearest by
+the same int64 key, with the global row index; the ranks' candidates are
+all-gathered and merged by that key (``sharded_nearest``), so the neighbors
+and their order are the one-device ``nearest``'s, the JAX ``lax.top_k``'s.
 """
 
 from __future__ import annotations
@@ -37,6 +44,7 @@ import numpy as np
 import torch
 
 from ugaitnet_tpu_torch.core.device import DeviceLike, resolve_device
+from ugaitnet_tpu_torch.ops.collectives import gather_rows_nograd
 
 
 def _pad_to(x: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
@@ -125,17 +133,44 @@ def pairwise_l2(probes: torch.Tensor, gallery: torch.Tensor,
     return torch.clamp_min(p2 + g2[None, :] - 2.0 * dot, 0.0)
 
 
+def _keys(d2: torch.Tensor, offset: int = 0) -> torch.Tensor:
+    """int64 (float32 bits of d2, offset + column) per entry: they sort as
+    (distance, index)."""
+    # + 0.0 turns a -0.0 into +0.0, whose bits sort as the smallest
+    bits = (d2 + 0.0).contiguous().view(torch.int32).to(torch.int64)
+    col = torch.arange(offset, offset + d2.shape[1], device=d2.device,
+                       dtype=torch.int64)
+    return (bits << 32) | col
+
+
+def _smallest(key: torch.Tensor, k: int) -> torch.Tensor:
+    return torch.topk(key, k, dim=1, largest=False, sorted=True)
+
+
 def nearest(d2: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """The k smallest entries of each row of non-negative float32 ``d2``,
     ascending, the lower column first among equal values: (values,
     indices), each (P, k)."""
-    # + 0.0 turns a -0.0 into +0.0, whose bits sort as the smallest
-    bits = (d2 + 0.0).contiguous().view(torch.int32).to(torch.int64)
-    col = torch.arange(d2.shape[1], device=d2.device, dtype=torch.int64)
-    key = (bits << 32) | col
-    idx = torch.topk(key, k, dim=1, largest=False, sorted=True).values
-    idx = idx & 0xFFFFFFFF
+    idx = _smallest(_keys(d2), k).values & 0xFFFFFFFF
     return torch.gather(d2, 1, idx), idx
+
+
+def sharded_nearest(d2: torch.Tensor, labels: torch.Tensor, k: int,
+                    offset: int, group) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``nearest`` over a gallery whose rows the ranks of ``group`` split
+    (``group=None``: one device holds them all): ``d2`` (P, G_r) holds
+    this rank's rows, the global rows from ``offset``, and ``labels``
+    (G_r,) their dense labels.  Returns the k nearest's (d2, labels), each
+    (P, k), the same on every rank."""
+    key = _smallest(_keys(d2, offset), min(k, d2.shape[1]))
+    cand = labels[key.indices]
+    keys = gather_rows_nograd(key.values[None], group)      # (n, P, k_r)
+    labs = gather_rows_nograd(cand[None], group)
+    keys = keys.permute(1, 0, 2).reshape(d2.shape[0], -1)
+    labs = labs.permute(1, 0, 2).reshape(d2.shape[0], -1)
+    best = _smallest(keys, k)
+    d2k = (best.values >> 32).to(torch.int32).view(torch.float32)
+    return d2k, torch.gather(labs, 1, best.indices)
 
 
 def vote(neighbor_labels: torch.Tensor, num_classes: int) -> torch.Tensor:
@@ -188,3 +223,62 @@ def knn_predict_with_distances(probes: np.ndarray, gallery: np.ndarray,
                            torch.as_tensor(dense.astype(np.int64)).to(dev),
                            k, len(ulabs))
     return ulabs[pred.cpu().numpy()], np.sqrt(d2.cpu().numpy())
+
+
+def pad_gallery_int8(q: np.ndarray, scale: np.ndarray, g2: np.ndarray,
+                     dense_labels: np.ndarray, multiple: int):
+    """Pad a quantized gallery to a row-count multiple with +inf-distance
+    sentinels (q = 0, scale 1, |g|^2 = 1e12) so row-sharding divides
+    evenly; the sentinels can never enter a top-k as long as k <= real
+    rows.  numpy, bitwise the JAX package's."""
+    pad = (-len(q)) % multiple
+    if not pad:
+        return q, scale, g2, dense_labels
+    return (np.concatenate([q, np.zeros((pad, q.shape[1]), np.int8)]),
+            np.concatenate([scale, np.ones(pad, np.float32)]),
+            np.concatenate([g2, np.full(pad, 1e12, np.float32)]),
+            np.concatenate([dense_labels, np.zeros(pad, np.int32)]))
+
+
+def knn_predict_sharded(probes: np.ndarray, gallery: np.ndarray,
+                        gallery_labels: np.ndarray, mesh, k: int = 3,
+                        gallery_dtype: str = "float32") -> np.ndarray:
+    """kNN with the gallery's rows split over the mesh's first axis, for
+    galleries too large for one card.  Every rank calls it with the same
+    arguments (SPMD) and gets the labels.
+
+    The gallery is padded to a multiple of the axis size with sentinels
+    (float32: rows of 1e6; int8: ``pad_gallery_int8``), each rank scores
+    the probes against its rows and the ranks' top-k merge by
+    ``sharded_nearest``.  gallery_dtype="int8" quantizes per row on the
+    host (shard-independent, so the distances are the one-device int8
+    path's) and takes the int8 cross term."""
+    axis = mesh.axis_names[0]
+    n, r, group = mesh.size(axis), mesh.index(axis), mesh.group(axis)
+    dev = mesh.device
+    ulabs, dense = np.unique(np.asarray(gallery_labels), return_inverse=True)
+    d_lab = dense.astype(np.int32)
+    k = min(k, len(gallery))
+    pr = _to_device(probes, dev)
+
+    def rows(a: np.ndarray) -> torch.Tensor:
+        size = len(a) // n
+        return torch.from_numpy(np.ascontiguousarray(
+            a[r * size:(r + 1) * size])).to(dev)
+
+    if gallery_dtype == "int8":
+        q, scale, g2 = (t.numpy() for t in quantize_gallery(
+            np.asarray(gallery, np.float32)))
+        q, scale, g2, d_lab = pad_gallery_int8(q, scale, g2, d_lab, n)
+        d2 = pairwise_l2_int8(pr, rows(q), rows(scale), rows(g2))
+    else:
+        g = np.asarray(gallery, np.float32)
+        pad = (-len(g)) % n
+        if pad:
+            g = np.concatenate([g, np.full((pad, g.shape[1]), 1e6,
+                                           np.float32)])
+            d_lab = np.concatenate([d_lab, np.zeros(pad, np.int32)])
+        d2 = pairwise_l2(pr, rows(g))
+    lab = rows(d_lab).to(torch.int64)
+    _, labels = sharded_nearest(d2, lab, k, r * (len(d_lab) // n), group)
+    return ulabs[vote(labels, len(ulabs)).cpu().numpy()]

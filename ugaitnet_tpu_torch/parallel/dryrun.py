@@ -6,17 +6,18 @@ Port of ``__graft_entry__.py:dryrun_multichip`` of the JAX package:
 
 runs, at the tiny flagship (channels (8, 8, 16), part_dim 16, global batch
 2n in pairs), one step each of the global data-parallel form, the per-shard
-form, and at even n sequence parallelism on an (n/2, 2) mesh and expert
-parallelism on an (n/2, 2) mesh with an MoE variant (4 experts), whose
-loss must equal the one-process MoE step's on the same batch.  Then the
-deterministic parity block: with dropout off and per-sample L2
-(``l2_mode="feature"``) the global form, the per-shard form and sequence
-parallelism compute one objective, and must agree.
-
-The JAX dryrun's tensor-parallel and pipeline steps and its sharded
-serving check are not here yet: they come with ``parallel/tensor.py``,
-``parallel/pipeline.py`` and the sharded kNN (ROADMAP.md section 1, item
-12).  CPU ranks run on gloo; ``--device cuda`` needs n cards (NCCL).
+form, and at even n tensor parallelism on an (n/2, 2) mesh (whose loss must
+equal the global form's), sequence parallelism on an (n/2, 2) mesh and
+expert parallelism on an (n/2, 2) mesh with an MoE variant (4 experts),
+whose loss must equal the one-process MoE step's on the same batch.  Rank 0
+runs the pipeline step over the first two devices (one process), whose
+loss must equal the global form's.  Then the deterministic parity block:
+with dropout off and per-sample L2 (``l2_mode="feature"``) the global form,
+the per-shard form and sequence parallelism compute one objective, and
+must agree.  Last, the sharded kNN: a 99-row gallery (which n need not
+divide) split over the n ranks, float32 and int8, must give the
+one-device kNN's labels.  CPU ranks run on gloo; ``--device cuda`` needs
+n cards (NCCL).
 """
 
 from __future__ import annotations
@@ -63,15 +64,19 @@ def dryrun_batch(b: int, device):
                                 .astype(np.int32)).to(device))
 
 
-def _state(mcfg, tcfg, device, mesh=None, ep_mesh=None):
-    """A seed-0 state; with ``ep_mesh`` its experts placed on the mesh
-    before the optimizer is made."""
+def _state(mcfg, tcfg, device, mesh=None, ep_mesh=None, tp_mesh=None):
+    """A seed-0 state; with ``ep_mesh`` / ``tp_mesh`` its experts / its
+    tensor-parallel shards placed on the mesh before the optimizer is
+    made."""
     from ugaitnet_tpu_torch.models.network import UGaitNet
     from ugaitnet_tpu_torch.parallel.expert import place_ep_model
+    from ugaitnet_tpu_torch.parallel.tensor import place_tp_model
     from ugaitnet_tpu_torch.train.train_step import init_state
     model = UGaitNet(mcfg, device=device, seed=0, mesh=mesh)
     if ep_mesh is not None:
         place_ep_model(model, ep_mesh)
+    if tp_mesh is not None:
+        place_tp_model(model, tp_mesh)
     return init_state(model, tcfg)
 
 
@@ -85,10 +90,13 @@ def _rank(rank: int, n: int, devices: Sequence) -> None:
     from ugaitnet_tpu_torch.parallel import sharding as S
     from ugaitnet_tpu_torch.parallel.expert import (make_ep_train_step,
                                                      make_mesh_dpep)
+    from ugaitnet_tpu_torch.parallel.pipeline import make_pipeline_train_step
     from ugaitnet_tpu_torch.parallel.sequence import (make_mesh_dpsp,
                                                        make_sp_train_step,
                                                        shard_batch_sp,
                                                        sp_model_config)
+    from ugaitnet_tpu_torch.parallel.tensor import (make_mesh2d,
+                                                     make_tp_train_step)
     from ugaitnet_tpu_torch.train.train_step import make_train_step
 
     tcfg = TrainConfig(lr=1e-4, loss_weights=(1.0, 0.1))
@@ -110,8 +118,13 @@ def _rank(rank: int, n: int, devices: Sequence) -> None:
                    _state(mcfg, tcfg, dev), local)
     loss2 = loss_of(S.make_shardmap_train_step(mcfg, tcfg, mesh),
                     _state(mcfg, tcfg, dev), local)
-    loss4 = loss6 = float("nan")
+    loss3 = loss4 = loss5 = loss6 = float("nan")
     if even:
+        mesh_tp = make_mesh2d(n // 2, 2, devices)
+        loss3 = loss_of(make_tp_train_step(mcfg, tcfg, mesh_tp),
+                        _state(mcfg, tcfg, dev, tp_mesh=mesh_tp),
+                        S.shard_batch(batch, mesh_tp))
+        _close(loss3, loss, "TP vs the global form")
         mesh_sp = make_mesh_dpsp(n // 2, 2, devices)
         loss4 = loss_of(
             make_sp_train_step(mcfg, tcfg, mesh_sp),
@@ -125,6 +138,16 @@ def _rank(rank: int, n: int, devices: Sequence) -> None:
                         _state(mcfg_moe, tcfg, dev, ep_mesh=mesh_ep),
                         S.shard_batch(batch, mesh_ep))
         _close(loss6, ref6, "EP vs the one-process MoE step")
+
+    if rank == 0:
+        pp_devs = [torch.device(d) for d in devices[:2]]
+        if len(pp_devs) < 2:
+            pp_devs = pp_devs * 2
+        st = _state(mcfg, tcfg, pp_devs[0])
+        loss5 = loss_of(make_pipeline_train_step(st.model, st.optimizer,
+                                                 mcfg, tcfg, pp_devs),
+                        st, dryrun_batch(2 * n, pp_devs[0]))
+        _close(loss5, loss, "PP vs the global form")
 
     # deterministic parity: dropout off, per-sample L2
     det = tiny_flagship(deterministic=True)
@@ -140,17 +163,39 @@ def _rank(rank: int, n: int, devices: Sequence) -> None:
             _state(sp_model_config(det), tcfg, dev, mesh_sp),
             shard_batch_sp(batch, mesh_sp))
         _close(det_sp, det_g, "SP vs global (deterministic)")
+    # the sharded kNN against the one-device kNN, on a gallery size that
+    # need not divide the world
+    from ugaitnet_tpu_torch.ops.knn import knn_predict, knn_predict_sharded
+    krng = np.random.RandomState(1)
+    protos = krng.randn(11, 64).astype(np.float32)
+    protos /= np.linalg.norm(protos, axis=1, keepdims=True)
+    gal = np.repeat(protos, 9, 0) + krng.randn(99, 64).astype(
+        np.float32) * 0.05
+    glab = np.repeat(np.arange(11), 9)
+    probes = np.repeat(protos, 2, 0) + krng.randn(22, 64).astype(
+        np.float32) * 0.05
+    serve_ref = knn_predict(probes, gal, glab, k=3, device=dev)
+    for gdtype in ("float32", "int8"):
+        got = knn_predict_sharded(probes, gal, glab, mesh, k=3,
+                                  gallery_dtype=gdtype)
+        if not np.array_equal(got, serve_ref):
+            raise AssertionError(f"sharded {gdtype} kNN diverged from the "
+                                 "one-device labels")
     if rank == 0:
+        tp_txt = f"{loss3:.4f} (tp 2d)" if even else \
+            "skipped (tp needs even n)"
         sp_txt = (f"{loss4:.4f} (sp 2d, local-batch norm + per-shard rng)"
                   if even else "skipped (sp needs even n)")
         ep_txt = f"{loss6:.4f} (ep 2d moe)" if even else \
             "skipped (ep needs even n)"
         print(f"dryrun_multichip({n}): step ok, loss={loss:.4f} (global) / "
               f"{loss2:.4f} (per-shard, local-batch norm + per-shard rng) /"
-              f" {sp_txt} / {ep_txt}; deterministic parity (dropout off, "
-              f"per-sample l2): {det_g:.4f} (global) == {det_s:.4f} "
-              f"(per-shard)" + (f" == {det_sp:.4f} (sp)" if even else "")
-              + "; tp, pp and sharded serving not ported yet", flush=True)
+              f" {tp_txt} / {sp_txt} / {loss5:.4f} (pp) / {ep_txt}; "
+              f"deterministic parity (dropout off, per-sample l2): "
+              f"{det_g:.4f} (global) == {det_s:.4f} (per-shard)"
+              + (f" == {det_sp:.4f} (sp)" if even else "")
+              + f"; sharded serving f32+int8 label parity ok (G=99 over "
+              f"{n} shards)", flush=True)
 
 
 def dryrun_multichip(n_devices: int, devices: Optional[Sequence] = None,

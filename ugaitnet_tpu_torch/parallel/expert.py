@@ -17,17 +17,17 @@ single-device program), so routing spans the global batch at dp > 1.
 
 The optimizer, made after ``place_ep_model``, holds moments of the shard
 only.  A checkpoint holds the whole ``expert_proj`` and its moments
-(``full_snapshot`` gathers them; ``load_full`` takes this rank's slice), so
-it resumes at any world size.
+(``core/checkpoint.py:full_snapshot`` gathers them; ``load_full`` takes
+this rank's slice), so it resumes at any world size.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence
+from typing import Optional, Sequence
 
 import torch
 
-from ugaitnet_tpu_torch.ops.collectives import gather_rows_nograd
+from ugaitnet_tpu_torch.core.checkpoint import ShardSpec
 from ugaitnet_tpu_torch.parallel.sharding import (DATA_AXIS, Mesh,
                                                   build_mesh,
                                                   make_sharded_train_step)
@@ -48,13 +48,6 @@ def _require_moe(mcfg) -> None:
             "(BranchConfig.moe_experts) — there is no expert axis to shard")
 
 
-def _sharded(model):
-    """(parameter name, branch) of every expert_proj split over ranks."""
-    return [(f"branches.{name}.expert_proj", br)
-            for name, br in model.branches.items()
-            if getattr(br, "expert_group", None) is not None]
-
-
 def place_ep_model(model, mesh: Mesh):
     """Keep this rank's experts of every MoE branch whose expert count the
     expert axis divides, in place (before the optimizer is made)."""
@@ -68,6 +61,7 @@ def place_ep_model(model, mesh: Mesh):
         shard = torch.nn.Parameter(br.expert_proj.detach()[j * n:(j + 1) * n]
                                    .clone())
         shard.expert_shard = True
+        shard.shard_spec = ShardSpec(mesh.group(EXPERT_AXIS), 0, j * n)
         br.expert_proj = shard
         br.expert_group, br.expert_start = mesh.group(EXPERT_AXIS), j * n
     return model
@@ -79,44 +73,3 @@ def make_ep_train_step(mcfg, tcfg, mesh: Mesh):
     ``place_ep_model``."""
     _require_moe(mcfg)
     return make_sharded_train_step(mcfg, tcfg, mesh)
-
-
-def _param_index(model) -> Dict[str, int]:
-    return {name: i for i, (name, _) in enumerate(model.named_parameters())}
-
-
-def full_snapshot(state, mesh: Mesh) -> Dict:
-    """{"step", "model", "optimizer"} on the CPU with every expert shard
-    and its moments gathered whole (every rank of the mesh calls it)."""
-    from ugaitnet_tpu_torch.core.checkpoint import snapshot
-    snap = snapshot(state)
-    group = mesh.group(EXPERT_AXIS)
-    index = _param_index(state.model)
-    opt_state = state.optimizer.state_dict()["state"]
-    for name, br in _sharded(state.model):
-        snap["model"][name] = gather_rows_nograd(
-            br.expert_proj.detach(), group).cpu()
-        for k, v in opt_state.get(index[name], {}).items():
-            if torch.is_tensor(v) and v.shape == br.expert_proj.shape:
-                snap["optimizer"]["state"][index[name]][k] = \
-                    gather_rows_nograd(v, group).cpu()
-    return snap
-
-
-def load_full(state, raw: Dict) -> None:
-    """Load a whole checkpoint payload into an expert-placed state, each
-    expert shard and its moments sliced to this rank's experts."""
-    index = _param_index(state.model)
-    model_sd = dict(raw["model"])
-    opt_sd = raw.get("optimizer")
-    for name, br in _sharded(state.model):
-        n, start = br.expert_proj.shape[0], br.expert_start
-        model_sd[name] = model_sd[name][start:start + n]
-        if opt_sd is not None:
-            for k, v in opt_sd["state"].get(index[name], {}).items():
-                if torch.is_tensor(v) and v.ndim == 3:
-                    opt_sd["state"][index[name]][k] = v[start:start + n]
-    state.model.load_state_dict(model_sd)
-    if opt_sd is not None:
-        state.optimizer.load_state_dict(opt_sd)
-    state.step = int(raw.get("step", state.step))

@@ -76,6 +76,17 @@ def device_list(n: int, device=None) -> List[torch.device]:
     return [torch.device("cuda", i) for i in range(n)]
 
 
+def rank_devices(device=None) -> List[torch.device]:
+    """The device list ``build_mesh`` takes, from inside a started world:
+    this rank's own device in every entry (the CPU for a CPU ``device``,
+    else the current card, which ``init_rank`` set), since a rank reads
+    only its own entry."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda":
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return [dev] * dist.get_world_size()
+
+
 def backend_for(devices: Sequence[torch.device]) -> str:
     """NCCL when every rank has a card of its own, else gloo."""
     devs = [torch.device(d) for d in devices]
@@ -164,6 +175,15 @@ def spawn(fn: Callable, world: int, args: Tuple = (),
     finally:
         if own and os.path.exists(init_file):
             os.unlink(init_file)
+
+
+def spawn_command(fn: Callable, world: int, argv, device=None) -> None:
+    """Start ``world`` ranks of a command: ``fn(rank, argv)`` in each, on
+    ``device_list(world, device)``; CPU ranks share the host's cores."""
+    devices = device_list(world, device)
+    threads = (max(1, (os.cpu_count() or 1) // world)
+               if devices[0].type == "cpu" else None)
+    spawn(fn, world, args=(argv,), devices=devices, threads=threads)
 
 
 # ------------------------------------------------------------------- mesh

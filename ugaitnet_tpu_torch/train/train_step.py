@@ -21,7 +21,11 @@ triplets are mined over the gathered signatures and labels and the id
 terms are averaged over the ranks, so every rank holds the same global
 loss.  ``global_batch`` picks the global form (the signature's L2 and MoE
 routing span the group in the forward) or the per-shard form (they are
-local, and the MoE term is averaged over the ranks).
+local, and the MoE term is averaged over the ranks).  Under tensor
+parallelism (``parallel/tensor.py``) the signature may be this model
+rank's strip of parts: the triplet kernel runs on the strip, and the
+rank's term, its parts' share of the mean over parts, is summed over the
+model group (``triplet_term``).
 
 The optimizers reproduce the JAX package's optax updates, which
 ``inject_hyperparams`` runs with float32 hyperparameters: the learning rate
@@ -39,12 +43,13 @@ import torch
 
 from ugaitnet_tpu_torch.core.config import ModelConfig, TrainConfig
 from ugaitnet_tpu_torch.models.branches import ShardKey, fold_key
-from ugaitnet_tpu_torch.models.network import UGaitNet
+from ugaitnet_tpu_torch.models.network import UGaitNet, tp_strips
 from ugaitnet_tpu_torch.ops import losses as L
 from ugaitnet_tpu_torch.ops.collectives import (DATA_AXIS, all_gather_rows,
                                                 all_reduce_mean,
                                                 average_gradients,
-                                                gather_rows_nograd)
+                                                gather_rows_nograd,
+                                                reduce_out)
 from ugaitnet_tpu_torch.ops.triplet import make_triplet_loss
 
 
@@ -251,6 +256,25 @@ def l2_regularization(model: UGaitNet, mcfg: ModelConfig) -> torch.Tensor:
     return total
 
 
+def strip_share(strip_parts: int, parts: int) -> float:
+    """A strip's weight in the mean over parts: the loss is the mean of
+    per-part means, so ``strip_parts`` of ``parts`` carry that share."""
+    return strip_parts / parts
+
+
+def triplet_term(loss: torch.Tensor, signature: torch.Tensor, model,
+                 mcfg: ModelConfig) -> torch.Tensor:
+    """The triplet loss of the whole signature from this rank's value:
+    ``loss`` itself unless the signature is a tensor-parallel strip, whose
+    share of the mean over parts the model group sums.  A signature that
+    every model rank holds whole gives the whole loss on each, once."""
+    tp = getattr(model, "tp", None)
+    if "signature" not in tp_strips(mcfg, tp):
+        return loss
+    share = strip_share(signature.shape[1], mcfg.signature_parts)
+    return reduce_out(loss * share, tp.group)
+
+
 def losses_from_outputs(out: Dict[str, object], model: UGaitNet,
                         batch: Batch, mcfg: ModelConfig, tcfg: TrainConfig,
                         group=None, global_batch: bool = True
@@ -262,8 +286,10 @@ def losses_from_outputs(out: Dict[str, object], model: UGaitNet,
     lw = list(tcfg.loss_weights)
     metrics: Dict[str, torch.Tensor] = {}
 
-    l_tri = triplet_fn(all_gather_rows(out["signature"], group),
-                       gather_rows_nograd(batch.labels, group))
+    l_tri = triplet_term(
+        triplet_fn(all_gather_rows(out["signature"], group),
+                   gather_rows_nograd(batch.labels, group)),
+        out["signature"], model, mcfg)
     metrics["triplet"] = l_tri
     total = lw[0] * l_tri
 

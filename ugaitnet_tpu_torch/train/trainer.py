@@ -23,13 +23,19 @@ only because of its mesh partitioner (ROADMAP.md section 3).
 On a mesh (``parallel/``) every rank runs this Trainer: a plain ("data",)
 mesh trains with the global form of ``parallel/sharding.py``, a ("data",
 "seq") mesh with ``parallel/sequence.py``, a ("data", "expert") mesh with
-``parallel/expert.py``.  Every rank builds the same sampler from the same
-seed and loads the same global batch, of which it trains on its part; it
-resumes from the step rank 0 found, validates the whole validation view
-(the same numbers on every rank) and takes the plateau and early-stop
-inputs from rank 0, so the ranks' learning rates never drift apart.  Rank 0
-alone writes config.json, norm stats, checkpoints (whole, so a run resumes
-at any world size), metrics, controller.json and the visual exports.
+``parallel/expert.py``, a ("data", "model") mesh with
+``parallel/tensor.py``.  ``tcfg.pp_devices`` trains with branch placement
+(``parallel/pipeline.py``) in this one process, over that many cards, or
+CPU devices for a CPU ``device``.  Every rank builds the same sampler from
+the same seed and loads the same global batch, of which it trains on its
+part; it resumes from the step rank 0 found, validates the whole
+validation view (the same numbers on every rank) and takes the plateau and
+early-stop inputs from rank 0, so the ranks' learning rates never drift
+apart.  Rank 0 alone writes config.json, norm stats, checkpoints (whole,
+so a run resumes at any world size), metrics, controller.json and the
+visual exports.
+Sharded parameters (expert and tensor parallelism) are joined whole for
+the save and sliced on load (``core/checkpoint.py:full_snapshot``).
 """
 
 from __future__ import annotations
@@ -57,22 +63,22 @@ from ugaitnet_tpu_torch.eval.encode import encode_dataset
 from ugaitnet_tpu_torch.eval.verification import verification_eer
 from ugaitnet_tpu_torch.models.network import UGaitNet
 from ugaitnet_tpu_torch.obsv.logger import MetricsLogger
-from ugaitnet_tpu_torch.parallel.expert import (full_snapshot, load_full,
-                                                make_ep_train_step,
+from ugaitnet_tpu_torch.parallel.expert import (make_ep_train_step,
                                                 place_ep_model)
+from ugaitnet_tpu_torch.parallel.pipeline import make_pipeline_train_step
 from ugaitnet_tpu_torch.parallel.sequence import (make_sp_train_step,
                                                   shard_batch_sp,
                                                   sp_model_config)
 from ugaitnet_tpu_torch.parallel.sharding import (broadcast_values,
-                                                  replicate, shard_batch)
+                                                  device_list, replicate,
+                                                  shard_batch)
+from ugaitnet_tpu_torch.parallel.tensor import (make_tp_train_step,
+                                                place_tp_model)
 from ugaitnet_tpu_torch.train.schedule import (EarlyStopOnAccuracy,
                                                ReduceLROnPlateau)
 from ugaitnet_tpu_torch.train.train_step import (Batch, TrainState, get_lr,
                                                  init_state, make_eval_step,
                                                  make_train_step, set_lr)
-
-MULTI_DEVICE = ("is not ported yet (ROADMAP.md section 1, item 12: "
-                "multi-device and extras)")
 
 
 class _NullLogger:
@@ -133,17 +139,22 @@ class Trainer:
                  mesh=None, norm_stats=None,
                  warm_start: Optional[Callable[[Dict], Dict]] = None,
                  device: DeviceLike = None):
-        for name in ("pp_devices", "tp_devices"):
-            if getattr(tcfg, name):
-                raise NotImplementedError(f"{name} {MULTI_DEVICE}")
         axes = mesh.axis_names if mesh is not None else ()
-        if "model" in axes:
-            raise NotImplementedError(f"tensor parallelism {MULTI_DEVICE}")
         self.mesh = mesh
         self._sp, self._ep = "seq" in axes, "expert" in axes
+        self._tp = "model" in axes
+        self.pp_devices = None
+        if tcfg.pp_devices:
+            if mesh is not None:
+                raise ValueError("pp_devices is exclusive with mesh modes")
+            self.pp_devices = device_list(tcfg.pp_devices, device)
         self.main = mesh is None or mesh.is_main
-        self.device = mesh.device if mesh is not None \
-            else resolve_device(device)
+        if mesh is not None:
+            self.device = mesh.device
+        elif self.pp_devices is not None:
+            self.device = self.pp_devices[0]
+        else:
+            self.device = resolve_device(device)
         self.warm_start = warm_start
         self.norm_stats = norm_stats
         self.mcfg, self.dcfg, self.tcfg = mcfg, dcfg, tcfg
@@ -161,6 +172,10 @@ class Trainer:
             self.step_fn = make_sp_train_step(mcfg, tcfg, mesh)
         elif self._ep:
             self.step_fn = make_ep_train_step(mcfg, tcfg, mesh)
+        elif self._tp:
+            self.step_fn = make_tp_train_step(mcfg, tcfg, mesh)
+        elif self.pp_devices is not None:
+            self.step_fn = None     # made with the model (init_or_resume)
         else:
             # one process, or the global data-parallel form on a mesh
             self.step_fn = make_train_step(mcfg, tcfg, mesh)
@@ -173,10 +188,10 @@ class Trainer:
         self._export_warned = False
 
     def _save_ckpt(self, step, state: TrainState) -> None:
-        """Rank 0 writes; under expert parallelism every rank first helps
-        gather the whole expert_proj."""
-        if self._ep:
-            state = full_snapshot(state, self.mesh)
+        """Rank 0 writes; under expert and tensor parallelism every rank
+        first helps join the shards whole."""
+        if self._ep or self._tp:
+            state = ckpt.full_snapshot(state)
         if not self.main:
             return
         if self._ckpt_writer is not None:
@@ -231,12 +246,18 @@ class Trainer:
             replicate(model, self.mesh)
         if self._ep:
             place_ep_model(model, self.mesh)
+        if self._tp:
+            place_tp_model(model, self.mesh)
         state = init_state(model, self.tcfg)
+        if self.pp_devices is not None:
+            self.step_fn = make_pipeline_train_step(
+                model, state.optimizer, self.mcfg, self.tcfg,
+                self.pp_devices)
         if last is None:
             return state, 0
-        if self._ep:
-            # a whole checkpoint, of which this rank keeps its experts
-            load_full(state, ckpt.restore_raw(self.experdir, last))
+        if self._ep or self._tp:
+            # a whole checkpoint, of which this rank keeps its shards
+            ckpt.load_full(state, ckpt.restore_raw(self.experdir, last))
         else:
             state = ckpt.restore_checkpoint(self.experdir, last, state)
         print(f"* resumed from epoch {last}", flush=True)

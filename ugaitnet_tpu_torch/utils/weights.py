@@ -101,8 +101,8 @@ def flax_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
             sd[f"{name}.bias"] = _tensor(sub["bias"])
         else:
             raise NotImplementedError(
-                f"param subtree {name!r} has no counterpart in the port yet "
-                "(ROADMAP.md section 1, item 12)")
+                f"param subtree {name!r} is not a UGaitNet subtree this "
+                "bridge knows")
     return sd
 
 
@@ -130,8 +130,8 @@ def state_dict_to_flax(state_dict: Mapping[str, torch.Tensor]) -> Dict:
                 head["bias"] = arr
         else:
             raise NotImplementedError(
-                f"state_dict key {key!r} has no flax counterpart yet "
-                "(ROADMAP.md section 1, item 12)")
+                f"state_dict key {key!r} is not a UGaitNet entry this "
+                "bridge knows")
     return {"params": tree}
 
 
