@@ -23,15 +23,32 @@ channels (32, 64, 128), part_dim 256, 62 parts, sign_max merge, 74 classes):
      bitwise, to those integer counts times the scale; dist against the
      plain pairwise_dist; kernel and plain times at the flagship shape,
      B = 256 and B = 512;
+ 1b. the GaitSet stage tail (``csrc/stage_tail.cu``: 2x2 max pool, leaky
+     ReLU, set max over T) against the plain chain (``ops/pooling.py:
+     stage_tail``) on the same CUDA tensors, float32 and bfloat16: the
+     forward bitwise (a and s) at the flagship's stage 1 and 2 (B = 120,
+     with tied clips), the encode batch = the prototype's (64, 32) and
+     (32, 64) and its (16, 128) (B = 128), ragged shapes (odd H and W; T =
+     1 with W = 12; C = 7 with W = 6) and all-constant clips; the gradient
+     against the plain autograd chain on tied inputs within 1e-6 of max
+     (bitwise expected), with three planted faults (ties routed to the first
+     max, the set max's gradient dropped, the negative slope alone at p ==
+     0) that must read above it; kernel and plain times (CUDA events)
+     against the bytes bound at the flagship's and the prototype's shapes;
   2. embed: preprocess_batch on raw int16 OF / uint8 gray at B = 128, then
      the forward, in float32 and bfloat16 (inputs perturbed every batch);
   3. train (the main path): raw B = 40 (8 ids x 5) -> preprocess with the
      flagship's augmentation (shift/zoom/flip, brightness and channel
      shift, the OF clip coin) and expand 3 (B = 120) -> Adam steps with
      the batch_all kernel (2 warm-up steps, then the median of 5); launch
-     counts are set to 0 just before and read just after; one step from
+     counts are set to 0 just before and read just after (the stage tail
+     exactly 4 + 4 per step: 2 branches x stages 1-2); one step from
      the same state and the same augmented batch with the plain triplet
-     must give the same losses and the same gradient at the signature;
+     must give the same losses and the same gradient at the signature, and
+     one with the plain stage tail (deterministic cuDNN) equal losses and
+     every parameter gradient within 1e-2 of its max (bitwise expected);
+     the fp32 and bf16 step ms and peak GB with the stage-tail kernels and
+     with the plain tail, in turns;
   4. checks: use_flag = 0 equals a noise-filled input exactly, and the card's
      forward agrees with the CPU's on a small batch (and with TF32 on, does
      not), read through the sign_max merge (``sign_max_rule``): the merge's
@@ -95,7 +112,10 @@ channels (32, 64, 128), part_dim 256, 62 parts, sign_max merge, 74 classes):
      == CPU bitwise, identify_raw per bucket against phase 6; export_encoder
      of the float32 and the int8 service at buckets (1, 8, 32, 128), a
      fresh process that loads both artifacts without model code and must
-     reproduce the services' codes, a CPU load of a cuda artifact that must
+     reproduce the services' codes (the fp32 artifact, whose program calls
+     the stage-tail kernel through the custom op ugaitnet::stage_tail,
+     bitwise, with its 4 launches per bucket-128 encode counted; the int8
+     program calls no custom op), a CPU load of a cuda artifact that must
      raise, and cli.export_model on phase 7's 'best';
   9. the train CLI's 2D CNN (--no-gaitset) and 3D CNN (--no-gaitset
      --use3d) nets at full width: forward card vs CPU within 3e-4 (and not
@@ -177,8 +197,9 @@ channels (32, 64, 128), part_dim 256, 62 parts, sign_max merge, 74 classes):
      within 1e-5 of max off the elements where a rank's sign_max pick
      differs from the one process's, and a planted fault (batch-axis L2
      local to each rank) above it.  summarize_trace over two train
-     steps: the top 10 kernels, and the three triplet kernels once each
-     per step.
+     steps, traced after a third that warms the profiler up: the top 10
+     kernels, the three triplet kernels once each and the two stage-tail
+     kernels 4 times each per step, as the launch counters count them.
 
 Gradient limits scale with each case, and every run reads planted faults
 (a backward without the g^T term, with the negative role's sign flipped,
@@ -186,6 +207,14 @@ or returning zeros) against them: a limit that passes a fault fails the run.
 
 The compiler's report (-Xptxas -v) is printed, and a kernel that spills
 registers fails the run.
+
+Stage-tail launches are counted on the main paths too: 2 per GaitSet branch
+forward on the card in phase 5's encode and phase 7's fit (4 per train
+step backward), 4 per identify_raw call in phase 6, 4 per encode of phase
+8's fp32 artifact in a fresh process, 4 + 4 per step over phase 13's two
+traced steps, in the counters and in the trace's own events.  The model's
+stage tails take the plain chain on the card only inside ``plain_tail()``
+(the comparison runs above).
 
 Prints the card (nvidia-smi name and power limit), one JSON line with every
 kernel's launches, error, times and bound, and as the last line
@@ -284,7 +313,9 @@ INT8_D2_REL = 1e-6
 EXPORT_REL = 1e-6
 # a fresh process that loads exported artifacts without model code, encodes
 # a saved feed with each (TF32 off, as this process runs the services) and
-# prints the port modules it imported
+# prints the stage-tail launches of each encode (0 where the artifact calls
+# no custom op, which leaves the op's module unimported) and the port
+# modules it imported
 EXPORT_BOOT = """
 import json, os, sys
 import numpy as np
@@ -294,16 +325,41 @@ torch.backends.cudnn.allow_tf32 = False
 sys.path.insert(0, sys.argv[1])
 from ugaitnet_tpu_torch.eval.export import ExportedEncoder
 raw = dict(np.load(sys.argv[2]))
+launches = {}
 for path in sys.argv[3:]:
-    np.save(os.path.join(path, "codes.npy"), ExportedEncoder(path).encode(raw))
+    enc = ExportedEncoder(path)
+    st = sys.modules.get("ugaitnet_tpu_torch.ops.cuda.stage_tail")
+    if st is not None:
+        st.reset_launch_counts()
+    np.save(os.path.join(path, "codes.npy"), enc.encode(raw))
+    torch.cuda.synchronize()
+    launches[path] = [st.fwd_launches, st.bwd_launches] if st else [0, 0]
+print(json.dumps(launches))
 print(json.dumps(sorted(m for m in sys.modules
                         if m.startswith("ugaitnet_tpu_torch"))))
 """
+# the port modules a loading process may import: the stage-tail op's
+# module and what it imports (kernel code; no model code)
+EXPORT_OP_MODULES = {"ugaitnet_tpu_torch.ops", "ugaitnet_tpu_torch.ops.cuda",
+                     "ugaitnet_tpu_torch.ops.cuda.stage_tail",
+                     "ugaitnet_tpu_torch.ops.cuda.build",
+                     "ugaitnet_tpu_torch.ops.pooling"}
 
 SRC = "ugaitnet_tpu_torch/csrc/triplet_kernel.cu"
 FWD_KERNELS = ("triplet_fwd_kernel",)
 BWD_KERNELS = ("triplet_rows_kernel", "triplet_finish_kernel")
 PALLAS = "ugaitnet_tpu/ops/pallas/triplet_kernel.py"
+TAIL_SRC = "ugaitnet_tpu_torch/csrc/stage_tail.cu"
+TAIL_PALLAS = "benchmarks/proto_tail.py:38"
+TAIL_FWD_KERNELS = ("stage_tail_fwd_kernel",)
+TAIL_BWD_KERNELS = ("stage_tail_bwd_kernel",)
+# the stage tail's gradient vs the plain autograd chain on the same inputs:
+# max |kernel - plain| <= TAIL_GRAD_REL * max |plain|.  0 is expected in
+# float32 and bfloat16 (the kernel rounds as torch's autograd formulas do,
+# one rounding per op); each planted fault must read above the limit
+TAIL_GRAD_REL = 1e-6
+TAIL_FAULTS = ("ties to the first max", "g_s dropped", "x0.3 at p == 0")
+TAIL_ALPHA = 0.3
 
 
 def check(cond, msg):
@@ -615,6 +671,338 @@ def kernel_vs_plain_step(name, mcfg, tcfg, before, batch, kstore,
     return sig_err, sig_faults
 
 
+@contextlib.contextmanager
+def plain_tail():
+    """Within the block the GaitSet branches' stage tails take the plain
+    chain on the card (the comparison runs of phases 1b and 3 only; nothing
+    on the main path does this)."""
+    from ugaitnet_tpu_torch.models import gaitset as GS
+    from ugaitnet_tpu_torch.ops.pooling import stage_tail
+    orig = GS.stage_tail_cuda
+    GS.stage_tail_cuda = stage_tail
+    try:
+        yield
+    finally:
+        GS.stage_tail_cuda = orig
+
+
+@contextlib.contextmanager
+def tail_counts(store):
+    """The stage-tail launches of the block (counts set to 0 at its start)
+    and the GaitSet branch forwards that ran on the card; fills ``store``
+    with tail_fwd, tail_bwd and branch_forwards."""
+    from ugaitnet_tpu_torch.models import gaitset as GS
+    from ugaitnet_tpu_torch.ops.cuda import stage_tail as ST
+    calls = [0]
+
+    def make(forward):
+        def call(self, x, *a, **kw):
+            calls[0] += x.device.type == "cuda"
+            return forward(self, x, *a, **kw)
+        return call
+
+    ST.reset_launch_counts()
+    with wrapped(GS.GaitSetBranch, "forward", make):
+        yield store
+    store.update(tail_fwd=ST.fwd_launches, tail_bwd=ST.bwd_launches,
+                 branch_forwards=calls[0])
+
+
+def tail_with_fault(x, batch, fault, alpha=TAIL_ALPHA):
+    """The plain stage tail with one planted fault in its gradient (the
+    forward values are the plain ones): ties routed to one element, in the
+    window (F.max_pool2d) and over T (max's index); the set max's gradient
+    dropped; or the negative slope alone at p == 0."""
+    import torch.nn.functional as F
+    from ugaitnet_tpu_torch.ops.pooling import max_pool_2x2, stage_tail
+    if fault is None:
+        return stage_tail(x, batch, alpha)
+    if fault == "ties to the first max":
+        h, w = x.shape[-2:]
+        p = F.max_pool2d(x[..., : h // 2 * 2, : w // 2 * 2], 2)
+        a = torch.maximum(p, alpha * p)
+        return a, a.reshape(batch, -1, *a.shape[1:]).max(dim=1).values
+    p = max_pool_2x2(x)
+    if fault == "g_s dropped":
+        a = torch.maximum(p, alpha * p)
+        return a, torch.amax(a.detach().reshape(batch, -1, *a.shape[1:]), 1)
+    a = torch.where(p > 0, p, alpha * p)              # x0.3 at p == 0
+    return a, torch.amax(a.reshape(batch, -1, *a.shape[1:]), 1)
+
+
+def tail_grad(x, batch, g_a, g_s, fault="kernel"):
+    """dL/dx of the stage tail for output gradients (g_a, g_s): through the
+    kernels (``fault="kernel"``), the plain chain (None) or a planted
+    fault."""
+    from ugaitnet_tpu_torch.ops.cuda import stage_tail as ST
+    xq = x.detach().clone().requires_grad_(True)
+    a, s = (ST.stage_tail_cuda(xq, batch, TAIL_ALPHA) if fault == "kernel"
+            else tail_with_fault(xq, batch, fault))
+    outs, grads = zip(*[(o, g) for o, g in ((a, g_a), (s, g_s))
+                        if o.requires_grad])      # s is detached in a fault
+    return torch.autograd.grad(outs, xq, grads)[0]
+
+
+def tail_bytes(x, batch):
+    """Bytes of the forward (x read; a, s written) and of the backward (x,
+    a, s, g_a, g_s read; dx written)."""
+    n, c, h, w = x.shape
+    e = x.element_size()
+    xb = x.numel() * e
+    ab = n * c * (h // 2) * (w // 2) * e
+    sb = batch * c * (h // 2) * (w // 2) * e
+    return xb + ab + sb, 2 * xb + 2 * ab + 2 * sb
+
+
+def tail_phase(card):
+    """1b. The stage-tail kernels against the plain chain on the card:
+    forward bitwise at the flagship's stage shapes (B = 120), the encode
+    batch and the prototype's shapes (B = 128), ragged and all-tied clips,
+    float32 and bfloat16; the gradient against the plain autograd chain
+    with three planted faults; times against the bytes bound."""
+    from ugaitnet_tpu_torch.ops.cuda import stage_tail as ST
+    from ugaitnet_tpu_torch.ops.pooling import stage_tail
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(11)
+    f32, bf16 = torch.float32, torch.bfloat16
+    out = {"forward": {}, "grad": {}, "times": {}}
+    t_phase = time.perf_counter()
+
+    def volume(b, t, c, h, w, dtype, tied=False):
+        x = torch.randn((b * t, c, h, w), device=dev, generator=gen)
+        if tied == "constant":
+            x.fill_(0.37)
+        elif tied:       # a constant clip, a zero clip (p == 0), repeated
+            x[:t] = 0.37     # frames and zero windows: every tie rule
+            x[t:2 * t] = 0.0
+            x[2 * t:3 * t] = x[2 * t].clone()
+            x[-1, :, :4, :4] = 0.0
+        return x.to(dtype)
+
+    # (name, B, T, C, H, W, tied): the flagship's stage 1 and 2 (B = 120),
+    # the encode batch = the prototype's (64, 32) and (32, 64) (B = 128),
+    # the prototype's (16, 128), ragged (odd H and W; T = 1 with W = 12, not
+    # a multiple of bfloat16's 8-wide vectors; C = 7 with W = 6, not of
+    # float32's 4), and all-tied clips
+    fwd_cases = [("stage 1", 120, 25, 32, 64, 64, True),
+                 ("stage 2", 120, 25, 64, 32, 32, True),
+                 ("encode stage 1 = proto (64, 32)", 128, 25, 32, 64, 64,
+                  False),
+                 ("encode stage 2 = proto (32, 64)", 128, 25, 64, 32, 32,
+                  False),
+                 ("proto (16, 128)", 128, 25, 128, 16, 16, False),
+                 ("odd H, W", 3, 5, 5, 7, 9, True),
+                 ("T = 1, W = 12", 4, 1, 3, 10, 12, False),
+                 ("C = 7, W = 6", 2, 3, 7, 6, 6, False),
+                 ("all-constant clips", 2, 25, 32, 64, 64, "constant")]
+    worst_fwd = 0.0
+    for name, b, t, c, h, w, tied in fwd_cases:
+        for dtype in (f32, bf16):
+            x = volume(b, t, c, h, w, dtype, tied)
+            ak, sk = ST.launch_fwd(x, b, TAIL_ALPHA)
+            ap, sp = stage_tail(x, b, TAIL_ALPHA)
+            err = max(float((ak.float() - ap.float()).abs().max()),
+                      float((sk.float() - sp.float()).abs().max()))
+            same = torch.equal(ak, ap) and torch.equal(sk, sp)
+            worst_fwd = max(worst_fwd, err)
+            out["forward"][f"{name} {str(dtype)[6:]}"] = {
+                "shape": [b * t, c, h, w], "batch": b, "bitwise": same,
+                "max_abs_err": err}
+            check(same, f"stage tail forward {name} {dtype}: kernel != plain "
+                        f"(max abs err {err})")
+            del x, ak, sk, ap, sp
+    print(f"stage tail forward, kernel vs plain: bitwise (torch.equal on a "
+          f"and s) in float32 and bfloat16 at {len(fwd_cases)} shapes "
+          f"({', '.join(c[0] for c in fwd_cases)}) [{card}]")
+
+    # the gradient, with ties, against the plain chain and planted faults
+    worst_bwd = 0.0
+    for name, b, t, c, h, w in (("stage 1", 120, 25, 32, 64, 64),
+                                ("stage 2", 120, 25, 64, 32, 32),
+                                ("odd H, W", 3, 5, 5, 7, 9)):
+        for dtype in (f32, bf16):
+            x = volume(b, t, c, h, w, dtype, True)
+            shape_a = (b * t, c, h // 2, w // 2)
+            g_a = torch.randn(shape_a, device=dev, generator=gen).to(dtype)
+            g_s = torch.randn((b,) + shape_a[1:], device=dev,
+                              generator=gen).to(dtype)
+            want = tail_grad(x, b, g_a, g_s, None).float()
+            got = tail_grad(x, b, g_a, g_s).float()
+            err = rel_err(got, want)
+            abs_err = float((got - want).abs().max())
+            worst_bwd = max(worst_bwd, abs_err)
+            faults = {f: rel_err(tail_grad(x, b, g_a, g_s, f).float(), want)
+                      for f in TAIL_FAULTS}
+            key = f"{name} {str(dtype)[6:]}"
+            out["grad"][key] = {"rel_err": err, "max_abs_err": abs_err,
+                                "mismatched": int((got != want).sum()),
+                                "faults": faults}
+            print(f"stage tail gradient {key} {tuple(x.shape)}: max |kernel -"
+                  f" plain| / max |plain| {err:.2e} (limit {TAIL_GRAD_REL}; "
+                  f"{out['grad'][key]['mismatched']} elements differ); planted"
+                  f" faults " + ", ".join(f"{f} {v:.3f}" for f, v in
+                                          faults.items()))
+            check(err <= TAIL_GRAD_REL, f"stage tail gradient {key}")
+            check(all(v > TAIL_GRAD_REL for v in faults.values()),
+                  f"stage tail gradient {key}: a planted fault passes")
+            del x, g_a, g_s, want, got
+    out["max_abs_err"] = {"tail_fwd": worst_fwd, "tail_bwd": worst_bwd}
+
+    # times: CUDA events around 20 launches (the wrapper's calls), the
+    # plain chain's forward and backward, and the bytes bound
+    for name, b, t, c, h, w, dtype in (
+            ("stage 1", 120, 25, 32, 64, 64, f32),
+            ("stage 2", 120, 25, 64, 32, 32, f32),
+            ("stage 1", 120, 25, 32, 64, 64, bf16),
+            ("stage 2", 120, 25, 64, 32, 32, bf16),
+            ("proto (64, 32)", 128, 25, 32, 64, 64, bf16),
+            ("proto (32, 64)", 128, 25, 64, 32, 32, bf16),
+            ("proto (16, 128)", 128, 25, 128, 16, 16, bf16)):
+        x = volume(b, t, c, h, w, dtype)
+        a, s = ST.launch_fwd(x, b, TAIL_ALPHA)
+        g_a, g_s = torch.randn_like(a), torch.randn_like(s)
+        r = {"shape": [b * t, c, h, w], "batch": b,
+             "fwd_ms": cuda_ms(lambda: ST.launch_fwd(x, b, TAIL_ALPHA)),
+             "bwd_ms": cuda_ms(lambda: ST.launch_bwd(x, a, s, g_a, g_s, b,
+                                                     TAIL_ALPHA))}
+        with torch.no_grad():
+            r["plain_fwd_ms"] = cuda_ms(lambda: stage_tail(x, b, TAIL_ALPHA),
+                                        10)
+        xq = x.clone().requires_grad_(True)
+        ap, sp = stage_tail(xq, b, TAIL_ALPHA)
+        r["plain_bwd_ms"] = cuda_ms(lambda: torch.autograd.grad(
+            (ap, sp), xq, (g_a, g_s), retain_graph=True), 10)
+        fb, bb = tail_bytes(x, b)
+        # operations: 3 + 1 + 1 compares and a multiply per a element
+        # forward, ~20 backward; far below the bytes
+        r["fwd_bound"] = bound(fb, 6 * a.numel())
+        r["bwd_bound"] = bound(bb, 20 * a.numel())
+        key = f"{name} {str(dtype)[6:]}"
+        out["times"][key] = r
+        print(f"stage tail times {key} {tuple(x.shape)}: kernel fwd "
+              f"{r['fwd_ms']:.4f} ms, bwd {r['bwd_ms']:.4f} ms (CUDA events, "
+              f"20 launches); plain fwd {r['plain_fwd_ms']:.4f} ms, bwd "
+              f"{r['plain_bwd_ms']:.4f} ms; bound fwd {r['fwd_bound'][0]:.4f}"
+              f" ms ({r['fwd_bound'][1]}, {fb / 1e9:.3f} GB), bwd "
+              f"{r['bwd_bound'][0]:.4f} ms ({r['bwd_bound'][1]}, "
+              f"{bb / 1e9:.3f} GB) [{card}]")
+        if key == "stage 1 float32":      # the profiler's device time too
+            r["fwd_dev"] = device_ms(lambda: ST.launch_fwd(x, b, TAIL_ALPHA),
+                                     TAIL_FWD_KERNELS)
+            r["bwd_dev"] = device_ms(lambda: ST.launch_bwd(
+                x, a, s, g_a, g_s, b, TAIL_ALPHA), TAIL_BWD_KERNELS)
+            check(set(r["fwd_dev"]) == set(TAIL_FWD_KERNELS) and
+                  set(r["bwd_dev"]) == set(TAIL_BWD_KERNELS),
+                  f"the profiler saw no stage tail kernel: {r}")
+            print(f"  torch.profiler device ms: fwd {r['fwd_dev']}, bwd "
+                  f"{r['bwd_dev']}")
+        del x, a, s, g_a, g_s, xq, ap, sp
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"phase 1b: {out['phase_s']:.1f} s")
+    return out
+
+
+def tail_vs_plain_step(mcfg, tcfg, before, batch):
+    """Phase 3's step from the state ``before`` (model and optimizer state
+    dicts, step count) on ``batch`` through the stage-tail kernels, and the
+    same step with the plain tail, both with deterministic cuDNN: the
+    kernel step launches exactly 4 + 4, the plain one none; losses equal;
+    each parameter gradient within GRAD_REL of its max (bitwise
+    expected)."""
+    from ugaitnet_tpu_torch.models.network import UGaitNet
+    from ugaitnet_tpu_torch.ops.cuda import stage_tail as ST
+    from ugaitnet_tpu_torch.train.train_step import (init_state,
+                                                     make_train_step)
+
+    def run():
+        net = UGaitNet(mcfg, seed=0)
+        net.load_state_dict(before[0])
+        state = init_state(net, tcfg)
+        state.optimizer.load_state_dict(before[1])
+        state.step = before[2]
+        ST.reset_launch_counts()
+        _, m = make_train_step(mcfg, tcfg)(state, batch)
+        torch.cuda.synchronize()
+        return ({k: float(v) for k, v in m.items()},
+                {n: q.grad.detach().clone() for n, q in
+                 net.named_parameters() if q.grad is not None},
+                (ST.fwd_launches, ST.bwd_launches))
+
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        mk, gk, lk = run()
+        with plain_tail():
+            mp, gp, lp = run()
+    finally:
+        torch.backends.cudnn.deterministic = det
+    errs = {n: (rel_err(gk[n], gp[n]) if float(gp[n].abs().max()) > 0
+                else float(gk[n].abs().max())) for n in gp}
+    worst = max(errs, key=errs.get)
+    out = {"launches": list(lk), "plain_launches": list(lp),
+           "losses_equal": mk == mp, "loss": mk["loss"],
+           "grad_rel_err_max": errs[worst], "worst_param": worst,
+           "grads_bitwise": all(torch.equal(gk[n], gp[n]) for n in gp),
+           "n_params": len(gp)}
+    print(f"train step, stage-tail kernels vs the plain tail (same state and "
+          f"batch, deterministic cuDNN): launches {lk} vs {lp}; losses "
+          f"{mk} vs {mp}; parameter gradients: worst {errs[worst]:.2e} of "
+          f"max at {worst} (limit {GRAD_REL}), bitwise "
+          f"{out['grads_bitwise']} over {len(gp)} tensors")
+    check(lk == (4, 4) and lp == (0, 0), f"tail launches {lk}, plain {lp}")
+    check(set(gk) == set(gp) and mk == mp, "kernel-tail step losses")
+    check(errs[worst] <= GRAD_REL, "kernel-tail step gradients")
+    return out
+
+
+def tail_ab_steps(cfgs, tcfg, batch, card, n=5, warm=2):
+    """The train step's ms and peak with the stage-tail kernels and with
+    the plain tail, in turns (kernel, plain, plain, kernel) from the seed-0
+    state on one batch, per config; median of the steps after ``warm``.
+    Peak: max_memory_allocated over the steps, absolute and above what was
+    allocated before the state was built."""
+    from ugaitnet_tpu_torch.models.network import UGaitNet
+    from ugaitnet_tpu_torch.train.train_step import (init_state,
+                                                     make_train_step)
+    out = {}
+    for label, cfg in cfgs.items():
+        runs = {"kernel": [], "plain": []}
+        for which in ("kernel", "plain", "plain", "kernel"):
+            gc.collect()
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            ctx = plain_tail() if which == "plain" else \
+                contextlib.nullcontext()
+            with ctx:
+                state = init_state(UGaitNet(cfg, seed=0), tcfg)
+                step = make_train_step(cfg, tcfg)
+                times = []
+                for _ in range(n):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    step(state, batch)
+                    torch.cuda.synchronize()
+                    times.append((time.perf_counter() - t0) * 1e3)
+            peak = torch.cuda.max_memory_allocated()
+            runs[which].append({"ms": float(np.median(times[warm:])),
+                                "peak_gb": peak / 1e9,
+                                "step_peak_gb": (peak - base) / 1e9})
+            del state, step
+        out[label] = runs
+        print(f"train step {label}, stage-tail kernels vs plain tail in turns"
+              f" (kernel, plain, plain, kernel; median of steps {warm + 1}-"
+              f"{n}, same batch): kernel "
+              + ", ".join(f"{r['ms']:.2f} ms / {r['peak_gb']:.2f} GB" for r in
+                          runs["kernel"])
+              + "; plain " + ", ".join(f"{r['ms']:.2f} ms / "
+                                       f"{r['peak_gb']:.2f} GB"
+                                       for r in runs["plain"])
+              + f" [{card}]")
+    return out
+
+
 def raw_batch(b, ids, seed):
     """b raw clips on the card (int16 OF planes, uint8 gray planes), all
     modalities present, labels ids x (b / ids), from a seeded generator."""
@@ -897,6 +1285,19 @@ def serve_phase(make_model, gallery_ds, probe_ds, card, big=65536):
         if dtype == "float32":
             fp32 = svc
     svc = fp32
+    # one identify_raw per bucket: one forward of each branch, 2 stage-tail
+    # launches each
+    from ugaitnet_tpu_torch.ops.cuda import stage_tail as ST
+    ST.reset_launch_counts()
+    for b in BUCKETS:
+        svc.identify_raw(raw(np.arange(b)))
+    tail = {"tail_fwd": ST.fwd_launches, "tail_bwd": ST.bwd_launches,
+            "calls": len(BUCKETS)}
+    out["tail_launches_identify_raw"] = tail
+    print(f"stage-tail launches in {len(BUCKETS)} identify_raw calls (one "
+          f"per bucket): {tail}")
+    check(tail["tail_fwd"] == 4 * len(BUCKETS) and tail["tail_bwd"] == 0,
+          f"identify_raw stage-tail launches {tail}")
     labels, dists = svc.identify_raw(raw(np.arange(128)))
     codes = svc.encode_raw(raw(np.arange(128)))
     check(np.array_equal(svc.identify_codes(codes)[0], labels),
@@ -1105,6 +1506,7 @@ def trainer_phase(card, work, gallery_dir, probe_dir, isolated_step_ms,
             return call
 
         K.reset_launch_counts()
+        fit_tail = {}
         t0 = time.perf_counter()
         with wrapped(TR.Trainer, "fit", capture_fit), \
                 wrapped(TR.Trainer, "_epoch", profiled_epoch), \
@@ -1116,7 +1518,8 @@ def trainer_phase(card, work, gallery_dir, probe_dir, isolated_step_ms,
                 wrapped(TR, "encode_dataset", timed_calls(encode_s)), \
                 wrapped(MetricsLogger, "export_embeddings",
                         timed_calls(export_s)), \
-                wrapped(net_utils, "save_filter_grid", timed_calls(filters_s)):
+                wrapped(net_utils, "save_filter_grid", timed_calls(filters_s)), \
+                tail_counts(fit_tail):
             exp_a = cli_train.main(flags_a)
         fit_s = time.perf_counter() - t0
         launches = {"triplet_fwd": K.fwd_launches,
@@ -1125,6 +1528,16 @@ def trainer_phase(card, work, gallery_dir, probe_dir, isolated_step_ms,
         want = {"triplet_fwd": FIT_EPOCHS * (steps + val_batches),
                 "triplet_bwd": FIT_EPOCHS * steps}
         check(launches == want, f"fit launches {launches}, expected {want}")
+        # stage tail: 2 per branch forward on the card (train steps,
+        # validation and the trainer's encodes), 4 per train step backward
+        out["tail_launches_fit"] = fit_tail
+        print(f"stage-tail launches in fit: {fit_tail} (2 per GaitSet branch "
+              f"forward; backward 4 x {FIT_EPOCHS} epochs x {steps} steps)")
+        check(fit_tail["tail_fwd"] == 2 * fit_tail["branch_forwards"]
+              and fit_tail["branch_forwards"]
+              >= 2 * FIT_EPOCHS * (steps + val_batches)
+              and fit_tail["tail_bwd"] == 4 * FIT_EPOCHS * steps,
+              f"fit stage-tail launches {fit_tail}")
         from torch.autograd import DeviceType
         names = [e.name for e in prof["p"].events()
                  if e.device_type == DeviceType.CUDA]
@@ -1703,20 +2116,37 @@ def int8_phase(card, sets, gallery_dir, probe_dir, experdir, serve_res,
                          + [art["fp32"], art["int8"]], capture_output=True,
                          text=True, timeout=600)
     check(res.returncode == 0, f"export subprocess:\n{res.stderr[-3000:]}")
-    mods = json.loads(res.stdout.strip().splitlines()[-1])
+    lines = res.stdout.strip().splitlines()
+    boot_launches, mods = json.loads(lines[-2]), json.loads(lines[-1])
     check("ugaitnet_tpu_torch.eval.export" in mods and not any(
         m.startswith(("ugaitnet_tpu_torch.models", "ugaitnet_tpu_torch.ops"))
-        for m in mods), f"the loading process imported {mods}")
+        and m not in EXPORT_OP_MODULES for m in mods),
+        f"the loading process imported {mods}")
+    # one encode at bucket 128: each branch's two stage tails in the fp32
+    # program; the int8 program keeps its integer tail
+    want_ops = {"fp32": (["ugaitnet::stage_tail"], [4, 0]),
+                "int8": ([], [0, 0])}
+    out["export_tail_launches"] = {}
     for name, want in (("fp32", f_codes), ("int8", q_codes)):
         got = np.load(os.path.join(art[name], "codes.npy"))
         e = float(np.abs(got - want).max() / np.abs(want).max())
+        with open(os.path.join(art[name], "meta.json")) as f:
+            ops = json.load(f)["custom_ops"]
+        n = boot_launches[art[name]]
         out[f"export_{name}_rel_err"] = e
+        out["export_tail_launches"][name] = n
+        same = bool(np.array_equal(got, want))
         print(f"artifact {name} in a fresh process ({len(mods)} port modules"
-              f", no models / ops): 128 probes, max |artifact - service| / "
-              f"max |service| {e:.2e} (limit {EXPORT_REL}; bitwise "
-              f"{bool(np.array_equal(got, want))}) [{card}]")
+              f", no models; custom ops {ops}, stage-tail launches {n}): 128 "
+              f"probes, max |artifact - service| / max |service| {e:.2e} "
+              f"(limit {EXPORT_REL}; bitwise {same}) [{card}]")
         check(got.shape == want.shape and e <= EXPORT_REL,
               f"artifact {name} vs its service")
+        check((ops, n) == want_ops[name],
+              f"artifact {name}: custom ops {ops}, launches {n}")
+        if name == "fp32":      # the same kernel serves both
+            check(np.array_equal(got, want), "the fp32 artifact differs from"
+                  " the kernel-served service's codes")
     try:
         ExportedEncoder(art["fp32"], device="cpu")
     except RuntimeError as e:
@@ -3570,6 +4000,30 @@ def _p13_firm(one, k=3):
     return d[:, k] - d[:, k - 1] > P13_TIE_REL * d[:, k]
 
 
+P13_COUNTED = "p13_counted_steps"
+
+
+def counted_trace(logdir, marker):
+    """Writes ``counted.json`` beside ``<logdir>/trace.json``, holding the
+    trace's events that start at or after the host range ``marker`` (the
+    card was synchronized just before it, so every earlier kernel has
+    ended).  Returns {"path": its path, "before": the kernel events left
+    out}."""
+    with open(os.path.join(logdir, "trace.json")) as f:
+        trace = json.load(f)
+    evs = trace["traceEvents"]
+    t0 = min(e["ts"] for e in evs if e.get("name") == marker
+             and e.get("ph") == "X")
+    kept = [e for e in evs if float(e.get("ts", t0)) >= t0]
+    before = sum(1 for e in evs if e.get("ph") == "X"
+                 and e.get("cat") == "kernel" and float(e["ts"]) < t0)
+    trace["traceEvents"] = kept
+    path = os.path.join(logdir, "counted.json")
+    with open(path, "w") as f:
+        json.dump(trace, f)
+    return {"path": path, "before": before}
+
+
 def tp_pp_phase(card, work, experdir, gallery_dir, probe_dir, one_results):
     """Phase 13: TP and PP against the one-process step, mesh serving and
     the sharded kNN, evaluate --dp 2, and a trace of two train steps."""
@@ -3577,6 +4031,7 @@ def tp_pp_phase(card, work, experdir, gallery_dir, probe_dir, one_results):
     from ugaitnet_tpu_torch.models.network import UGaitNet
     from ugaitnet_tpu_torch.obsv.logger import profile
     from ugaitnet_tpu_torch.obsv.profiling import summarize_trace
+    from ugaitnet_tpu_torch.ops.cuda import stage_tail as ST
     from ugaitnet_tpu_torch.ops.cuda import triplet_kernel as K
     from ugaitnet_tpu_torch.parallel import pipeline as PP
     from ugaitnet_tpu_torch.parallel import sharding as S
@@ -3636,14 +4091,36 @@ def tp_pp_phase(card, work, experdir, gallery_dir, probe_dir, one_results):
     logdir = os.path.join(work, "p13_trace")
     torch.cuda.synchronize()
     with profile(logdir):
-        for _ in range(2):
-            step(state, batch)
+        # the profiler loses kernel events of the first step it traces;
+        # one step warms it up, and only the kernels that start after it
+        # are summarized
+        step(state, batch)
         torch.cuda.synchronize()
-    prof = summarize_trace(logdir, iters=2)
+        ST.reset_launch_counts()
+        with torch.profiler.record_function(P13_COUNTED):
+            for _ in range(2):
+                step(state, batch)
+            torch.cuda.synchronize()
+    out["tail_launches_traced"] = [ST.fwd_launches, ST.bwd_launches]
+    counted = counted_trace(logdir, P13_COUNTED)
+    out["trace_kernels_warm_step"] = counted["before"]
+    prof = summarize_trace(counted["path"], iters=2)
     out["profile_top10"] = [list(r) for r in prof[:10]]
     out["profile_triplet"] = {
         k: sum(r.count for r in prof if k in r.name) / 2
         for k in FWD_KERNELS + BWD_KERNELS}
+    out["profile_tail"] = {
+        k: sum(r.count for r in prof if k in r.name) / 2
+        for k in TAIL_FWD_KERNELS + TAIL_BWD_KERNELS}
+    # where the trace's stage-tail events fall among its kernel events, in
+    # time order (the trace may miss kernels the counters saw launch)
+    with open(counted["path"]) as f:
+        kev = sorted((e["ts"], e["name"]) for e in json.load(f)["traceEvents"]
+                     if e.get("ph") == "X" and e.get("cat") == "kernel")
+    out["trace_positions"] = {
+        k: [i for i, (_, n) in enumerate(kev) if k in n]
+        for k in TAIL_FWD_KERNELS + TAIL_BWD_KERNELS + FWD_KERNELS}
+    out["trace_kernels"] = len(kev)
     del state, step, batch
     gc.collect()
     torch.cuda.empty_cache()
@@ -3724,7 +4201,12 @@ def tp_pp_phase(card, work, experdir, gallery_dir, probe_dir, one_results):
     print(f"trace of 2 train steps (summarize_trace, kernel events), top 10:")
     for ms, n, name in out["profile_top10"]:
         print(f"  {ms:9.3f} ms/step x{n:3d}  {name[:90]}")
-    print(f"triplet kernels per step in the trace: {out['profile_triplet']}")
+    print(f"triplet kernels per step in the trace: {out['profile_triplet']};"
+          f" stage-tail kernels {out['profile_tail']} (launch counters over "
+          f"the 2 traced steps: {out['tail_launches_traced']}); positions "
+          f"among the 2 steps' {out['trace_kernels']} kernel events: "
+          f"{out['trace_positions']}; the warm-up step inside the trace: "
+          f"{out['trace_kernels_warm_step']} kernel events")
     print(f"phase 13: {out['phase_s']:.1f} s (TP {out['tp_s']:.1f} s, serving"
           f" {out['serve_s']:.1f} s, evaluate {out['eval_s']:.1f} s) [{card}]")
     for r in out["tp"]:
@@ -3757,6 +4239,11 @@ def tp_pp_phase(card, work, experdir, gallery_dir, probe_dir, one_results):
           "evaluate --dp 2: the planted local L2 passes the codes check")
     check(all(v == 1 for v in out["profile_triplet"].values()),
           f"trace: triplet kernels per step {out['profile_triplet']}")
+    check(out["tail_launches_traced"] == [8, 8],
+          f"stage-tail launches over 2 traced steps "
+          f"{out['tail_launches_traced']}")
+    check(all(v == 4 for v in out["profile_tail"].values()),
+          f"trace: stage-tail kernels per step {out['profile_tail']}")
     out["launches"] = {"tp_rank_step": out["tp"][0]["launches"],
                        "pp_step": pp["launches"]}
     return out
@@ -3770,6 +4257,7 @@ def main():
     from ugaitnet_tpu_torch.data.pipeline import preprocess_batch
     from ugaitnet_tpu_torch.models.network import UGaitNet
     from ugaitnet_tpu_torch.ops.cuda import build
+    from ugaitnet_tpu_torch.ops.cuda import stage_tail as ST
     from ugaitnet_tpu_torch.ops.cuda import triplet_kernel as K
     from ugaitnet_tpu_torch.ops.triplet import (batch_all_triplet_loss,
                                                 pairwise_dist)
@@ -3788,8 +4276,15 @@ def main():
           f"python {sys.version.split()[0]}")
 
     t0 = time.perf_counter()
-    build.load("triplet_kernel")
-    print(f"kernel build: {time.perf_counter() - t0:.1f} s")
+    # one nvcc per source, all started together, then load them
+    from concurrent.futures import ThreadPoolExecutor
+    sources = ("triplet_kernel", "stage_tail")
+    with ThreadPoolExecutor(len(sources)) as pool:
+        list(pool.map(build.build, sources))
+    for name in sources:
+        build.load(name)
+    print(f"kernel build ({', '.join(sources)}, in parallel): "
+          f"{time.perf_counter() - t0:.1f} s")
     # the host gather's library, built here so no timed phase pays for it
     from ugaitnet_tpu_torch.data import native
     t0 = time.perf_counter()
@@ -3797,9 +4292,11 @@ def main():
           "the native gather did not build (host C++ compiler)")
     print(f"native gather build: {time.perf_counter() - t0:.1f} s "
           f"({native.LIB_PATH})")
-    with open(f"{build.BUILD_DIR}/triplet_kernel.log") as f:
-        ptxas = [ln.strip() for ln in f if "registers" in ln or "spill" in ln
-                 or "Compiling entry" in ln]
+    ptxas = []
+    for name in sources:
+        with open(f"{build.BUILD_DIR}/{name}.log") as f:
+            ptxas += [ln.strip() for ln in f if "registers" in ln
+                      or "spill" in ln or "Compiling entry" in ln]
     print("ptxas: " + " | ".join(ptxas))
     spills = [ln for ln in ptxas if "spill" in ln]
     check(spills and all("0 bytes spill stores, 0 bytes spill loads" in ln
@@ -3921,6 +4418,9 @@ def main():
         check(vk == 0.0 and vp == 0.0 and float(gk.abs().max()) == 0.0, name)
     flag_t = times["flagship"]
 
+    # ---- 1b. the stage tail kernels vs plain -------------------------------
+    tail_res = tail_phase(card)
+
     # ---- full-width flagship ----------------------------------------------
     dcfg = DataConfig()
     mods = (("of", "gray"), (2, 1), (100.0, 1.0), 2)
@@ -3971,6 +4471,7 @@ def main():
     kstore = {}
     torch.cuda.reset_peak_memory_stats()
     K.reset_launch_counts()
+    ST.reset_launch_counts()
     for i in range(nsteps):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -3990,12 +4491,15 @@ def main():
         step_ms.append((time.perf_counter() - t0) * 1e3)
         losses.append({k: float(v) for k, v in metrics.items()})
     hook.remove()
-    launches = {"triplet_fwd": K.fwd_launches, "triplet_bwd": K.bwd_launches}
+    launches = {"triplet_fwd": K.fwd_launches, "triplet_bwd": K.bwd_launches,
+                "tail_fwd": ST.fwd_launches, "tail_bwd": ST.bwd_launches}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     check(tuple(vols[0].shape) == (120, 25, 60, 60, 2), "train batch")
     for m in losses:
         check(all(np.isfinite(v) for v in m.values()), f"train metrics {m}")
-    check(launches == {"triplet_fwd": nsteps, "triplet_bwd": nsteps},
+    # 2 branches x stages 1-2: 4 stage-tail launches each way per step
+    check(launches == {"triplet_fwd": nsteps, "triplet_bwd": nsteps,
+                       "tail_fwd": 4 * nsteps, "tail_bwd": 4 * nsteps},
           f"kernel launches {launches} over {nsteps} steps")
     train_ms = float(np.median(step_ms[warmup:]))
     print(f"train: {nsteps} steps B=120, losses "
@@ -4006,6 +4510,7 @@ def main():
 
     sig_err, sig_faults = kernel_vs_plain_step(
         "train", mcfg, tcfg, before, batch, kstore, losses[-1])
+    tail_step = tail_vs_plain_step(mcfg, tcfg, before, batch)
 
     # where the time of a float32 step goes (launch counts already read)
     def one_step():
@@ -4038,6 +4543,8 @@ def main():
     print(f"train bfloat16: step {bf_train_ms:.2f} ms (median of steps "
           f"{warmup + 1}-{nsteps}, same batch, preprocess excluded) [{card}]")
     del bf_state
+    tail_ab = tail_ab_steps({"float32": mcfg, "bfloat16": bf_cfg}, tcfg,
+                            batch, card)
 
     # ---- 4. checks on the full-width forward --------------------------------
     model = state.model
@@ -4063,13 +4570,21 @@ def main():
           f"{time.perf_counter() - t0:.1f} s")
     K.reset_launch_counts()
     eval_model = UGaitNet(flagship_cfg(), seed=0)
-    eval_res = eval_phase(eval_model, gallery_ds, probe_ds, card)
+    encode_tail = {}
+    with tail_counts(encode_tail):
+        eval_res = eval_phase(eval_model, gallery_ds, probe_ds, card)
+    print(f"stage-tail launches in phase 5 (encode): {encode_tail}")
+    check(encode_tail["branch_forwards"] > 0 and encode_tail["tail_bwd"] == 0
+          and encode_tail["tail_fwd"] == 2 * encode_tail["branch_forwards"],
+          f"phase 5 stage-tail launches {encode_tail}")
+    eval_res["tail_launches"] = encode_tail
     del eval_model
     serve_res = serve_phase(lambda dt: UGaitNet(flagship_cfg(dtype=dt),
                                                 seed=0),
                             gallery_ds, probe_ds, card)
     print(f"triplet kernel launches during eval and serve: "
           f"{K.fwd_launches}, {K.bwd_launches} (not on these paths)")
+    serve_tail = serve_res["tail_launches_identify_raw"]
 
     # ---- 7. the trainer through the CLIs ------------------------------------
     sets = tempfile.mkdtemp(prefix="chip_smoke_sets_")
@@ -4207,6 +4722,31 @@ def main():
          "bound_by": flag_t["bwd_bound"][1],
          "library_ms": None},
     ]
+    # the stage tail: times at the flagship's stage 1 in float32 (every
+    # shape and dtype under "by_shape"); launches of the fit, by path phase
+    # 3's steps, phase 5's encode, phase 6's identify_raw (one per bucket)
+    # and phase 8's fp32 artifact (one bucket-128 encode, a fresh process)
+    fit_tail = trainer_res["tail_launches_fit"]
+    art_tail = int8_res["export_tail_launches"]["fp32"]
+    s1 = tail_res["times"]["stage 1 float32"]
+    for d in ("fwd", "bwd"):
+        kernels.append({
+            "name": f"tail_{d}", "route": "cuda", "source": TAIL_SRC,
+            "replaces": TAIL_PALLAS, "launches": fit_tail[f"tail_{d}"],
+            "launches_by_path": {
+                "train_step": launches[f"tail_{d}"],
+                "fit": fit_tail[f"tail_{d}"],
+                "encode": encode_tail[f"tail_{d}"],
+                "identify_raw": serve_tail[f"tail_{d}"],
+                "artifact_encode": art_tail[0 if d == "fwd" else 1]},
+            "max_abs_err": tail_res["max_abs_err"][f"tail_{d}"],
+            "ms": s1[f"{d}_ms"], "plain_ms": s1[f"plain_{d}_ms"],
+            "bound_ms": s1[f"{d}_bound"][0], "bound_by": s1[f"{d}_bound"][1],
+            "library_ms": None,
+            "by_shape": {k: {"ms": v[f"{d}_ms"],
+                             "plain_ms": v[f"plain_{d}_ms"],
+                             "bound_ms": v[f"{d}_bound"][0]}
+                         for k, v in tail_res["times"].items()}})
     print(json.dumps({"card": card, "embed_ms_per_batch": embed,
                       "train_step_ms": train_ms,
                       "train_step_bf16_ms": bf_train_ms,
@@ -4225,7 +4765,9 @@ def main():
                       "trainer": trainer_res, "int8": int8_res,
                       "branches": branch_res, "surface": surface_res,
                       "joint": joint_res, "parallel": parallel_res,
-                      "tp_pp": tp_res}))
+                      "tp_pp": tp_res, "stage_tail": tail_res,
+                      "train_tail_step": tail_step,
+                      "train_tail_ab": tail_ab}))
     print(f"wall time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,8 @@
-"""The CUDA batch-all triplet kernel against the port's plain version, and
-the serving path's card-side ops (top-k order, augmentation, the int8
-cross term and int8 conv sums) against the same ops on the CPU or an exact
-int64 product, on the card.  Imports no JAX, so it runs where only the port is installed:
+"""The CUDA batch-all triplet kernel and the GaitSet stage tail against
+the port's plain versions, and the serving path's card-side ops (top-k
+order, augmentation, the int8 cross term and int8 conv sums) against the
+same ops on the CPU or an exact int64 product, on the card.  Imports no
+JAX, so it runs where only the port is installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
@@ -16,14 +17,19 @@ backward that drops the g^T term or returns zeros reads above 0.6.
 The kernels are also held to themselves, exactly: dist is bitwise
 symmetric with a zero diagonal, the per-part counts equal the active
 triplets that torch counts over the kernel's own dist, and the backward's
-g equals those integer counts times the scale, bitwise.
-"""
+g equals those integer counts times the scale, bitwise.  The stage tail is
+held bitwise in float32 and bfloat16, forward and gradient, ties included,
+and an exported program calls its kernel.  With two cards or more, the
+kernels and a GaitSet branch run on a card that is not the current device,
+and pipeline parallelism places a branch on cuda:1 (skipped on one card)."""
 
 import numpy as np
 import pytest
 import torch
 
+from ugaitnet_tpu_torch.ops.cuda import stage_tail as ST
 from ugaitnet_tpu_torch.ops.cuda import triplet_kernel as K
+from ugaitnet_tpu_torch.ops.pooling import stage_tail
 from ugaitnet_tpu_torch.ops.triplet import (batch_all_triplet_loss,
                                             pairwise_dist)
 
@@ -283,3 +289,228 @@ def test_cuda_int8_conv_matches_cpu(cuda, kernel, strides, same, cin, cout):
     want = conv(x, lambda y: y)
     got = conv.to(cuda)(x.to(cuda), lambda y: y)
     assert got.dtype == torch.int32 and torch.equal(got.cpu(), want)
+
+
+# ---- the GaitSet stage tail (ops/cuda/stage_tail.py) -----------------------
+# (B, T, C, H, W): the vector path (W a multiple of 8), W = 12 (float32's
+# vectors, not bfloat16's), odd H and W, T = 1, one channel
+TAIL_CASES = [(2, 3, 4, 16, 16), (3, 2, 5, 8, 12), (2, 4, 3, 7, 9),
+              (4, 1, 2, 6, 10), (1, 5, 1, 11, 5)]
+
+
+def _tail_input(cuda, b, t, c, h, w, dtype, tied):
+    rng = np.random.RandomState(h * w + c)
+    x = rng.randn(b * t, c, h, w).astype(np.float32)
+    if tied:                       # a constant clip, zero windows, repeats
+        x[:t] = 0.5
+        x[-1, :, :2, :2] = 0.0
+        if b > 1 and t > 1:
+            x[t:2 * t] = x[t]
+    return torch.from_numpy(x).to(cuda, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("tied", [False, True])
+@pytest.mark.parametrize("b,t,c,h,w", TAIL_CASES)
+def test_cuda_stage_tail_matches_plain(cuda, dtype, tied, b, t, c, h, w):
+    """Forward bitwise; the gradient bitwise too (the kernel rounds as
+    torch's autograd formulas do, one rounding per op)."""
+    x = _tail_input(cuda, b, t, c, h, w, dtype, tied)
+    ST.reset_launch_counts()
+    xk = x.clone().requires_grad_(True)
+    xp = x.clone().requires_grad_(True)
+    ak, sk = ST.stage_tail_cuda(xk, b)
+    ap, sp = stage_tail(xp, b, 0.3)
+    assert torch.equal(ak, ap) and torch.equal(sk, sp)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    ga = torch.randn(ap.shape, device=cuda, generator=g).to(dtype)
+    gs = torch.randn(sp.shape, device=cuda, generator=g).to(dtype)
+    (dk,) = torch.autograd.grad((ak, sk), xk, (ga, gs))
+    (dp,) = torch.autograd.grad((ap, sp), xp, (ga, gs))
+    torch.cuda.synchronize()
+    assert dk.dtype == dtype and torch.equal(dk, dp)
+    assert (ST.fwd_launches, ST.bwd_launches) == (1, 1)
+
+
+@pytest.mark.cuda
+def test_cuda_stage_tail_raises(cuda):
+    x = torch.randn(6, 3, 8, 8, device=cuda)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        ST.stage_tail_cuda(x.half(), 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        ST.stage_tail_cuda(x.transpose(2, 3), 2)
+    with pytest.raises(ValueError, match="do not split"):
+        ST.stage_tail_cuda(x, 4)
+
+
+@pytest.mark.cuda
+def test_cuda_stage_tail_export_calls_the_kernel(cuda, tmp_path):
+    """torch.export records the op; the saved program, loaded, launches the
+    forward kernel and gives the plain chain's values bitwise."""
+    from ugaitnet_tpu_torch.eval.export import _custom_ops
+
+    class Tail(torch.nn.Module):
+        def forward(self, x):
+            return ST.stage_tail_cuda(x, 2, 0.3)
+
+    x = _tail_input(cuda, 2, 3, 4, 16, 16, torch.float32, True)
+    prog = torch.export.export(Tail(), (x,))
+    path = str(tmp_path / "tail.pt2")
+    torch.export.save(prog, path)
+    loaded = torch.export.load(path)
+    assert _custom_ops(loaded) == ["ugaitnet::stage_tail"]
+    ST.reset_launch_counts()
+    with torch.no_grad():
+        a, s = loaded.module()(x)
+    ap, sp = stage_tail(x, 2, 0.3)
+    assert torch.equal(a, ap) and torch.equal(s, sp)
+    assert (ST.fwd_launches, ST.bwd_launches) == (1, 0)
+
+
+# ---- kernels on a card that is not the current device -------------------
+@pytest.fixture
+def cards():
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    torch.cuda.set_device(0)
+    return [torch.device(f"cuda:{i}")
+            for i in range(torch.cuda.device_count())]
+
+
+def _tiny_gaitset(nclasses=4):
+    from ugaitnet_tpu_torch.core.config import BranchConfig, ModelConfig
+    b = dict(kind="gaitset", gaitset_channels=(4, 4, 8), part_dim=8)
+    return ModelConfig(branches=(BranchConfig(modality="of", **b),
+                                 BranchConfig(modality="gray", **b)),
+                       merge="sign_max", nclasses=nclasses)
+
+
+def _tiny_batch(device, b=8, seed=0):
+    from ugaitnet_tpu_torch.train.train_step import Batch
+    rng = np.random.RandomState(seed)
+    vols = (rng.randn(b, 25, 60, 60, 2), rng.randn(b, 25, 60, 60, 1))
+    flags = (np.ones(b), np.ones(b))
+    flags[0][1] = 0.0
+    labels = np.repeat(np.arange(b // 2), 2) % 4
+    return Batch(tuple(torch.from_numpy(v.astype(np.float32)).to(device)
+                       for v in vols),
+                 tuple(torch.from_numpy(f.astype(np.float32)).to(device)
+                       for f in flags),
+                 torch.from_numpy(labels.astype(np.int32)).to(device))
+
+
+@pytest.mark.cuda
+def test_cuda_kernels_on_a_card_that_is_not_current(cards, monkeypatch):
+    """cuda:0 is current and the tensors live on the last card: the stage
+    tail (forward and gradient, bitwise against the plain chain there), the
+    triplet kernels (the rule of test_cuda_kernel_matches_plain) and a
+    GaitSet branch's forward and backward (the kernel route against the
+    plain tail on that card: output bitwise, gradients within GRAD_REL of
+    max) launch on the tensors' card."""
+    from ugaitnet_tpu_torch.models import gaitset as GS
+    dev = cards[-1]
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    ST.reset_launch_counts()
+    for dtype in (torch.float32, torch.bfloat16):
+        x = _tail_input(dev, 2, 3, 4, 16, 16, dtype, True)
+        xk, xp = (x.clone().requires_grad_(True) for _ in range(2))
+        ak, sk = ST.stage_tail_cuda(xk, 2)
+        ap, sp = stage_tail(xp, 2, 0.3)
+        assert ak.device == dev and torch.equal(ak, ap) \
+            and torch.equal(sk, sp)
+        ga, gs = torch.randn_like(ap), torch.randn_like(sp)
+        (dk,) = torch.autograd.grad((ak, sk), xk, (ga, gs))
+        (dp,) = torch.autograd.grad((ap, sp), xp, (ga, gs))
+        assert torch.equal(dk, dp)
+    assert (ST.fwd_launches, ST.bwd_launches) == (2, 2)
+
+    emb, labels = _case(dev, 62, 120, 256, 4, 10)
+    xp, xk = (emb.clone().requires_grad_(True) for _ in range(2))
+    want = batch_all_triplet_loss(xp, labels)
+    want.backward()
+    K.reset_launch_counts()
+    got = K.batch_all_triplet_loss_cuda(xk, labels)
+    got.backward()
+    assert (K.fwd_launches, K.bwd_launches) == (1, 1)
+    np.testing.assert_allclose(float(got.detach()), float(want.detach()),
+                               rtol=VAL_RTOL)
+    want_g = xp.grad.cpu().numpy()
+    np.testing.assert_allclose(xk.grad.cpu().numpy(), want_g, rtol=0,
+                               atol=GRAD_REL * np.abs(want_g).max())
+
+    vol = _tiny_batch(dev).volumes[0]
+    outs = []
+    for route in ("kernel", "plain"):
+        gen = torch.Generator().manual_seed(0)
+        branch = GS.GaitSetBranch(2, channels=(4, 4, 8), part_dim=8,
+                                  generator=gen).to(dev)
+        with monkeypatch.context() as m:
+            if route == "plain":
+                m.setattr(GS, "stage_tail_cuda", stage_tail)
+            ST.reset_launch_counts()
+            out = branch(vol)
+            out.square().sum().backward()
+            outs.append((out.detach(), [p.grad for p in branch.parameters()],
+                         (ST.fwd_launches, ST.bwd_launches)))
+    (ok, gk, nk), (op, gp, np_) = outs
+    assert nk == (2, 2) and np_ == (0, 0)
+    assert torch.equal(ok, op)
+    for a, b in zip(gk, gp):
+        assert a.device == dev
+        tol = GRAD_REL * float(b.abs().max())
+        assert float((a - b).abs().max()) <= tol
+    assert torch.cuda.current_device() == 0
+
+
+@pytest.mark.cuda
+def test_cuda_pipeline_across_two_cards(cards, monkeypatch):
+    """make_pipeline_train_step with branch 1 on cuda:1 against the
+    one-process step on cuda:0, from the same weights and batch (SGD at lr
+    0, so the gradients stay in .grad): losses within 1e-5, each gradient
+    within GRAD_REL of its max, and a planted fault (branch 1's gradient
+    dropped) above that; the stage tail launches on both cards (2 + 2 per
+    branch) and the triplet kernels once each on the head's."""
+    from ugaitnet_tpu_torch.core.config import TrainConfig
+    from ugaitnet_tpu_torch.models.network import UGaitNet
+    from ugaitnet_tpu_torch.parallel import pipeline as P
+    from ugaitnet_tpu_torch.train.train_step import (init_state,
+                                                     make_train_step)
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    mcfg = _tiny_gaitset()
+    tcfg = TrainConfig(optimizer="sgd", lr=0.0)
+    batch = _tiny_batch(cards[0])
+
+    def run(pipeline, fault=False):
+        state = init_state(UGaitNet(mcfg, device=cards[0], seed=0), tcfg)
+        step = (P.make_pipeline_train_step(state.model, state.optimizer,
+                                           mcfg, tcfg, cards[:2])
+                if pipeline else make_train_step(mcfg, tcfg))
+        ST.reset_launch_counts()
+        K.reset_launch_counts()
+        with monkeypatch.context() as m:
+            if fault:
+                m.setattr(P, "add_branch_grads", lambda *a: None)
+            _, met = step(state, batch)
+        launches = (ST.fwd_launches, ST.bwd_launches, K.fwd_launches,
+                    K.bwd_launches)
+        grads = {k: (p.grad if p.grad is not None else torch.zeros_like(p))
+                 for k, p in state.model.named_parameters()}
+        return {k: float(v) for k, v in met.items()}, grads, launches
+
+    m1, g1, n1 = run(False)
+    mp, gp, np_ = run(True)
+    _, gf, _ = run(True, fault=True)
+    assert n1 == np_ == (4, 4, 1, 1)
+    for k, v in m1.items():
+        assert abs(mp[k] - v) <= 1e-5 * max(abs(v), 1e-12), k
+
+    def err(g):
+        return max(float((g[k] - g1[k]).abs().max())
+                   / max(float(g1[k].abs().max()), 1e-30) for k in g1)
+
+    assert err(gp) <= GRAD_REL
+    assert err(gf) > GRAD_REL

@@ -308,4 +308,16 @@ def test_more_ranks_than_cards_raise():
 
 def test_dryrun_multichip_4(capsys):
     from ugaitnet_tpu_torch.parallel.dryrun import dryrun_multichip
-    dryrun_multichip(4)
+    dryrun_multichip(4, [torch.device("cpu")] * 4)
+
+
+def test_dryrun_defaults_to_the_card():
+    """The dryrun's entry points mean cards 0..n-1 unless asked for the
+    CPU: without enough cards they raise, and never run on the CPU."""
+    from ugaitnet_tpu_torch.parallel import dryrun
+    if torch.cuda.device_count() >= 2:
+        pytest.skip("this host has two cards")
+    with pytest.raises(ValueError, match="2-device mesh"):
+        dryrun.main([])
+    with pytest.raises(ValueError, match="3-device mesh"):
+        dryrun.dryrun_multichip(3)

@@ -339,7 +339,8 @@ TRAINER_SLICE = ("train/schedule.py", "train/trainer.py", "obsv/logger.py",
                  "utils/keras_export.py", "cli/build_data.py",
                  "cli/sweep.py", "parallel/sharding.py",
                  "parallel/sequence.py", "parallel/expert.py",
-                 "parallel/dryrun.py", "ops/moe.py", "ops/collectives.py")
+                 "parallel/dryrun.py", "ops/moe.py", "ops/collectives.py",
+                 "ops/cuda/stage_tail.py")
 
 
 def _port_sources():

@@ -2,10 +2,12 @@
 
 The port's own copy of ``ugaitnet_tpu/core/config.py``: the same dataclasses
 with the same field names and defaults, so one ``config.json`` drives both
-packages.  Fields that select paths the port has not brought over yet (conv2d
-and conv3d branches, MoE, the sharding axes, optimizers other than Adam) are
-kept so a config round-trips; the modules that read them raise
-``NotImplementedError`` for values they do not support.
+packages.  Every field selects a path the port runs: the gaitset, conv2d and
+conv3d branches, MoE, the sharding axes (data, sequence, expert, tensor and
+pipeline parallelism) and the optimizer menu.  A value no module supports
+raises ``ValueError`` where it is read (an unknown branch kind, say).  No
+field selects the port's CUDA kernels: a CUDA tensor takes them, a CPU
+tensor their plain versions.
 """
 
 from __future__ import annotations

@@ -20,10 +20,18 @@ Artifacts are bound to the device type that exported them ("cuda" or
 is a setting of the serving process, not of the artifact: codes equal the
 exporting service's only under the same ``torch.backends`` TF32 flags
 (the port's parity setting is off).
+
+On the card the GaitSet stage tail is the custom op
+``ugaitnet::stage_tail`` (``ops/cuda/stage_tail.py``), which the program
+records as it records aten ops, so an artifact serves through the same
+kernel as the service.  ``meta["custom_ops"]`` lists the port's ops a
+program calls; the loader imports the module that registers each (kernel
+code, which builds nothing at import) and still no model code.
 """
 
 from __future__ import annotations
 
+import importlib
 import json
 import os
 from typing import Dict, Sequence, Tuple
@@ -34,6 +42,20 @@ from torch import nn
 
 from ugaitnet_tpu_torch.core.config import FRAME_H, FRAME_W, NUM_FRAMES
 from ugaitnet_tpu_torch.core.device import DeviceLike, resolve_device
+
+# the port's custom ops an exported program may call, and the module whose
+# import registers each
+CUSTOM_OP_MODULES = {
+    "ugaitnet::stage_tail": "ugaitnet_tpu_torch.ops.cuda.stage_tail",
+}
+
+
+def _custom_ops(prog) -> list:
+    """The port's custom ops (``ugaitnet::``) that ``prog``'s graph calls."""
+    return sorted({n.target.name() for n in prog.graph.nodes
+                   if n.op == "call_function"
+                   and isinstance(n.target, torch._ops.OpOverload)
+                   and n.target.namespace == "ugaitnet"})
 
 
 def _raw_specs(modalities, channels, compress_factors, batch: int,
@@ -80,6 +102,7 @@ def export_encoder(service, out_dir: str,
     enc = _Encoder(service).eval()
     sizes: Dict[int, int] = {}
     code = None
+    custom_ops = set()
     for b in buckets:
         spec = _raw_specs(service.modalities, service.channels,
                           service.compress_factors, b,
@@ -91,6 +114,7 @@ def export_encoder(service, out_dir: str,
             prog = torch.export.export(enc, (raw,))
             if code is None:
                 code = prog.module()(raw)
+        custom_ops.update(_custom_ops(prog))
         prog.example_inputs = None     # zeros of the bucket's size
         path = os.path.join(out_dir, f"encode_b{b}.pt2")
         torch.export.save(prog, path)
@@ -109,6 +133,7 @@ def export_encoder(service, out_dir: str,
         "code_dim": int(code.shape[-1]),
         "code_dtype": str(code.dtype).replace("torch.", ""),
         "quantized": bool(service.quantized),
+        "custom_ops": sorted(custom_ops),
     }
     with open(os.path.join(out_dir, "meta.json"), "w") as f:
         json.dump(meta, f, indent=1)
@@ -137,6 +162,8 @@ class ExportedEncoder:
         self.buckets = tuple(self.meta["buckets"])
         self.code_dim = int(self.meta["code_dim"])
         self.code_dtype = np.dtype(self.meta["code_dtype"])
+        for op in self.meta.get("custom_ops", ()):
+            importlib.import_module(CUSTOM_OP_MODULES[op])
         self._fns = {b: torch.export.load(
                          os.path.join(path, f"encode_b{b}.pt2")).module()
                      for b in self.buckets}

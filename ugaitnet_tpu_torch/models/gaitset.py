@@ -19,16 +19,20 @@ and the set stream runs ``(B, C, H, W)``.
                      Switch load-balance aux loss)
 
 lrelu is ``max(x, 0.3 x)``, applied after the pools as in the JAX module
-(exact by monotonicity).  With ``dtype=torch.bfloat16`` the conv inputs and
-weights are cast to bf16 (outputs bf16) and the part projection takes bf16
-inputs with float32 accumulation and output, where the JAX module casts.
+(exact by monotonicity).  The frame stream's stage tails (stages 1 and 2:
+2x2 max pool, lrelu, and the set max of the pooled frames) go through
+``ops/cuda/stage_tail.py:stage_tail_cuda``: the CUDA kernels on the card,
+the plain chain (``ops/pooling.py:stage_tail``) on the CPU.  With
+``dtype=torch.bfloat16`` the conv inputs and weights are cast to bf16
+(outputs bf16) and the part projection takes bf16 inputs with float32
+accumulation and output, where the JAX module casts.
 
 Sequence parallelism (``parallel/sequence.py``): with ``seq_group`` set the
 branch holds only its rank's frames, and each set pool is the local max
-over them, gathered over the group and maxed again; a global max over T is
-the max of the ranks' maxima.  Expert parallelism (``parallel/expert.py``)
-sets ``expert_group`` and keeps experts [``expert_start``, ``expert_start``
-+ E_local) of ``expert_proj``.
+over them (the stage tail's s), gathered over the group and maxed again;
+a global max over T is the max of the ranks' maxima.  Expert parallelism
+(``parallel/expert.py``) sets ``expert_group`` and keeps experts
+[``expert_start``, ``expert_start`` + E_local) of ``expert_proj``.
 
 Tensor parallelism (``parallel/tensor.py``) sets ``model_group`` and
 splits conv pairs: the convs named in ``tp_split`` hold a share of their
@@ -52,6 +56,7 @@ from torch import nn
 
 from ugaitnet_tpu_torch.ops.collectives import (all_gather_rows, copy_in,
                                                 reduce_out)
+from ugaitnet_tpu_torch.ops.cuda.stage_tail import stage_tail_cuda
 from ugaitnet_tpu_torch.ops.moe import moe_capacity, moe_project
 from ugaitnet_tpu_torch.ops.pooling import max_pool_2x2
 
@@ -86,13 +91,19 @@ class FrameConv(nn.Module):
                         padding=w.shape[-1] // 2)
 
 
-def _set_max(a: torch.Tensor, batch: int, seq_group=None) -> torch.Tensor:
-    """Set pooling: (B*T, C, H, W) -> (B, C, H, W), max over time; over the
-    seq group's frames too when one is given."""
-    out = torch.amax(a.reshape(batch, -1, *a.shape[1:]), dim=1)
+def _group_max(out: torch.Tensor, seq_group=None) -> torch.Tensor:
+    """A set pool over this rank's frames -> over the seq group's frames
+    (the max of the ranks' maxima); the identity without a group."""
     if seq_group is not None:
         out = torch.amax(all_gather_rows(out[None], seq_group), dim=0)
     return out
+
+
+def _set_max(a: torch.Tensor, batch: int, seq_group=None) -> torch.Tensor:
+    """Set pooling: (B*T, C, H, W) -> (B, C, H, W), max over time; over the
+    seq group's frames too when one is given."""
+    return _group_max(torch.amax(a.reshape(batch, -1, *a.shape[1:]), dim=1),
+                      seq_group)
 
 
 def _hpp(fmap: torch.Tensor, num_bin: int) -> torch.Tensor:
@@ -168,19 +179,23 @@ class GaitSetBranch(nn.Module):
             return reduce_out(out, mg) if name in self.tp_split else out
 
         b, t, h, w, c = x.shape
-        # (B, T, H, W, C) -> (B*T, C, H, W); cast before padding, as JAX
-        x = x.permute(0, 1, 4, 2, 3).reshape(b * t, c, h, w).to(self.dtype)
+        # (B, T, H, W, C) -> (B*T, C, H, W); cast before padding, as JAX.
+        # Contiguous NCHW whatever the caller's strides (a contiguous
+        # (B, T, H, W, C) volume would give a channels-last view): every
+        # conv output then stays NCHW, the layout the stage tail takes
+        x = x.permute(0, 1, 4, 2, 3).reshape(b * t, c, h, w).to(
+            self.dtype, memory_format=torch.contiguous_format)
         p = self.pad
         x = F.pad(x, (p, p, p, p))
 
         # frame stream, stage 1
         a = lrelu(col("a_conv1", x))
         a = row("a_conv2", a)
-        a = lrelu(max_pool_2x2(a))                     # (B*T, c1, 32, 32)
+        a, sa = stage_tail_cuda(a, b, alpha)           # (B*T, c1, 32, 32)
 
         # set stream, stage 1
         sq = self.seq_group
-        sb = _set_max(a, b, sq)
+        sb = _group_max(sa, sq)
         sb = lrelu(col("b_conv1", sb))
         sb = row("b_conv2", sb)
         sb = lrelu(max_pool_2x2(sb))                   # (B, c2, 16, 16)
@@ -188,9 +203,9 @@ class GaitSetBranch(nn.Module):
         # frame stream, stage 2
         a = lrelu(col("a_conv3", a))
         a = row("a_conv4", a)
-        a = lrelu(max_pool_2x2(a))                     # (B*T, c2, 16, 16)
+        a, sa = stage_tail_cuda(a, b, alpha)           # (B*T, c2, 16, 16)
 
-        sb = sb + _set_max(a, b, sq)                    # residual add
+        sb = sb + _group_max(sa, sq)                    # residual add
         sb = lrelu(col("b_conv3", sb))
         sb = lrelu(row("b_conv4", sb))                 # (B, c3, 16, 16)
 

@@ -182,11 +182,13 @@ def launch_fwd(x: torch.Tensor, labels: torch.Tensor, margin: float):
     p, b, d, ps, rs = _geometry(x)
     pl = plan(p, b, d)
     dist, sums, counts = fwd_outputs(pl, p, b, x.device)
-    rc = _lib().triplet_fwd(
-        x.data_ptr(), labels.data_ptr(), dist.data_ptr(), sums.data_ptr(),
-        counts.data_ptr(), p, b, d, ps, rs, float(margin), pl.fwd_ta,
-        pl.fwd_grid_x, pl.fwd_smem,
-        torch.cuda.current_stream(x.device).cuda_stream)
+    # the runtime launches on its current device, which must be x's
+    with torch.cuda.device(x.device):
+        rc = _lib().triplet_fwd(
+            x.data_ptr(), labels.data_ptr(), dist.data_ptr(),
+            sums.data_ptr(), counts.data_ptr(), p, b, d, ps, rs,
+            float(margin), pl.fwd_ta, pl.fwd_grid_x, pl.fwd_smem,
+            torch.cuda.current_stream(x.device).cuda_stream)
     _check(rc, "triplet_fwd")
     fwd_launches += 1
     return dist, sums.sum(1), counts.sum(1).to(torch.float32)
@@ -207,12 +209,13 @@ def launch_bwd(x: torch.Tensor, labels: torch.Tensor, dist: torch.Tensor,
     pl = plan(p, b, d)
     g = torch.empty((p, b, b), dtype=torch.float32, device=x.device)
     dx = torch.empty_like(x)
-    rc = _lib().triplet_bwd(
-        x.data_ptr(), labels.data_ptr(), dist.data_ptr(), scale.data_ptr(),
-        g.data_ptr(), dx.data_ptr(), p, b, d, ps, rs, float(margin),
-        pl.rows_ta, pl.rows_grid_x, pl.rows_smem, pl.fin_ti, pl.fin_grid_x,
-        pl.fin_grid_y, pl.fin_smem,
-        torch.cuda.current_stream(x.device).cuda_stream)
+    with torch.cuda.device(x.device):
+        rc = _lib().triplet_bwd(
+            x.data_ptr(), labels.data_ptr(), dist.data_ptr(),
+            scale.data_ptr(), g.data_ptr(), dx.data_ptr(), p, b, d, ps, rs,
+            float(margin), pl.rows_ta, pl.rows_grid_x, pl.rows_smem,
+            pl.fin_ti, pl.fin_grid_x, pl.fin_grid_y, pl.fin_smem,
+            torch.cuda.current_stream(x.device).cuda_stream)
     _check(rc, "triplet_bwd")
     bwd_launches += 1
     return dx, g

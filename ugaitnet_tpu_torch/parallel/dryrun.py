@@ -16,8 +16,8 @@ with dropout off and per-sample L2 (``l2_mode="feature"``) the global form,
 the per-shard form and sequence parallelism compute one objective, and
 must agree.  Last, the sharded kNN: a 99-row gallery (which n need not
 divide) split over the n ranks, float32 and int8, must give the
-one-device kNN's labels.  CPU ranks run on gloo; ``--device cuda`` needs
-n cards (NCCL).
+one-device kNN's labels.  By default the ranks take cards 0..n-1 (NCCL)
+and it raises with fewer cards; ``--device cpu`` runs CPU ranks on gloo.
 """
 
 from __future__ import annotations
@@ -200,12 +200,13 @@ def _rank(rank: int, n: int, devices: Sequence) -> None:
 
 def dryrun_multichip(n_devices: int, devices: Optional[Sequence] = None,
                      threads: Optional[int] = 1) -> None:
-    """One step of each ported form over ``n_devices`` ranks (default: CPU
-    ranks on gloo); raises if a rank fails or a parity check does not
-    hold."""
-    from ugaitnet_tpu_torch.parallel.sharding import spawn
+    """One step of each ported form over ``n_devices`` ranks; raises if a
+    rank fails or a parity check does not hold.  ``devices=None`` means
+    cards 0..n-1 (``parallel/sharding.py:device_list``, which raises with
+    fewer cards than ranks); CPU ranks on gloo must be asked for."""
+    from ugaitnet_tpu_torch.parallel.sharding import device_list, spawn
     devices = list(devices) if devices is not None else \
-        [torch.device("cpu")] * n_devices
+        device_list(n_devices)
     spawn(_rank, n_devices, args=(n_devices, devices), devices=devices,
           threads=threads)
 
@@ -213,7 +214,8 @@ def dryrun_multichip(n_devices: int, devices: Optional[Sequence] = None,
 def main(argv=None) -> None:
     p = argparse.ArgumentParser("ugaitnet-torch-dryrun")
     p.add_argument("n", type=int, nargs="?", default=2)
-    p.add_argument("--device", default="cpu")
+    p.add_argument("--device", default=None,
+                   help="cuda (the default: one card per rank) or cpu")
     args = p.parse_args(argv)
     from ugaitnet_tpu_torch.parallel.sharding import device_list
     dryrun_multichip(args.n, device_list(args.n, args.device))

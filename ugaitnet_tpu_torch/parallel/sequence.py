@@ -6,8 +6,9 @@ of it frames [s T/sp, (s + 1) T/sp) of every clip.  The GaitSet trunk is
 frame separable (every cross-frame interaction is a set max, and a global
 max over T is the max of each rank's local max), so each rank convolves
 its frames and the three set pools close over the seq group with a small
-differentiable gather (``models/gaitset.py:_set_max``); everything after
-the pools runs on every seq rank alike.
+differentiable gather (``models/gaitset.py:_group_max``, after the stage
+tail's local set max at stages 1 and 2); everything after the pools runs
+on every seq rank alike.
 
 The step is the per-shard form of ``parallel/sharding.py`` on the data
 axis: the signature normalizes over the local batch, dropout keys fold the
