@@ -35,8 +35,30 @@ channels (32, 64, 128), part_dim 256, 62 parts, sign_max merge, 74 classes):
      max, the set max's gradient dropped, the negative slope alone at p ==
      0) that must read above it; kernel and plain times (CUDA events)
      against the bytes bound at the flagship's and the prototype's shapes;
+ 1c. the 3x3 conv kernel (``csrc/conv3x3.cu``, bf16 in and out, float32
+     accumulation) against its plain version (``ops/conv3x3.py:conv3x3``)
+     on the same CUDA tensors: the flagship's a_conv6 (3200, 128, 16, 16)
+     and a_conv2 (3200, 32, 64, 64) with the seed-0 weights, their tensor-
+     parallel halves (Ci 64 and 16), the tiny flagship's 8 -> 8 at 64x64
+     and 16 -> 16 at 16x16, ragged shapes (Ci 7 -> Co 5 at 5x5, H != W,
+     N = 1 with W > 128 and Co > 128) and all-zero and all-constant frames,
+     each element within one bf16 ulp of the plain value plus CONV_SUM_REL
+     x (|x| conv |w|); three planted faults (a border tap dropped, Ci and
+     Co of the weight swapped, a tap shifted by a column) must read above
+     that; kernel, plain and cuDNN (bf16 ``F.conv2d``, held to the same
+     limit) times against the bound;
+ 1d. the probes (``csrc/probes.cu``): mm_fwd at M = 262,144, K in (576,
+     1152, 2304) against its plain version within the same limit, timed
+     beside cuBLAS (bf16 ``torch.matmul``); scale2 bitwise against x * 2 on
+     the prototype's (T*32*32*32, 128) view of a (128, 25, 32, 32, 32) bf16
+     tensor, timed with and without the transpose, against the bytes bound;
   2. embed: preprocess_batch on raw int16 OF / uint8 gray at B = 128, then
      the forward, in float32 and bfloat16 (inputs perturbed every batch);
+     the bf16 forward launches the conv kernel exactly 4 times (a_conv2
+     and a_conv6 of both branches), the fp32 one never; the bf16
+     signature against the same batch through the ``F.conv2d`` route
+     (``cudnn_conv``), read through the sign_max merge within
+     ROUTE_REL, and the bf16 ms both ways in turns;
   3. train (the main path): raw B = 40 (8 ids x 5) -> preprocess with the
      flagship's augmentation (shift/zoom/flip, brightness and channel
      shift, the OF clip coin) and expand 3 (B = 120) -> Adam steps with
@@ -48,7 +70,8 @@ channels (32, 64, 128), part_dim 256, 62 parts, sign_max merge, 74 classes):
      one with the plain stage tail (deterministic cuDNN) equal losses and
      every parameter gradient within 1e-2 of its max (bitwise expected);
      the fp32 and bf16 step ms and peak GB with the stage-tail kernels and
-     with the plain tail, in turns;
+     with the plain tail, in turns; neither step launches the conv kernel
+     (it has no backward);
   4. checks: use_flag = 0 equals a noise-filled input exactly, and the card's
      forward agrees with the CPU's on a small batch (and with TF32 on, does
      not), read through the sign_max merge (``sign_max_rule``): the merge's
@@ -65,7 +88,10 @@ channels (32, 64, 128), part_dim 256, 62 parts, sign_max merge, 74 classes):
      would not;
   6. serve: SignatureService with buckets (1, 8, 32, 128) over the
      synthetic gallery, identify_raw timed per bucket in float32 and
-     bfloat16; 128 rows enrolled in place, one label removed, self-queries
+     bfloat16 (the bf16 service launches the conv kernel 4 times per
+     identify_raw, and its labels on 128 probes equal those of the
+     ``F.conv2d`` route outside near ties); 128 rows enrolled in place, one
+     label removed, self-queries
      answered with their own labels; then a 65,536 x 15,872 random
      unit-norm gallery (4.2 GB) and identify_codes at bucket 128 against
      its bound;
@@ -360,6 +386,33 @@ TAIL_BWD_KERNELS = ("stage_tail_bwd_kernel",)
 TAIL_GRAD_REL = 1e-6
 TAIL_FAULTS = ("ties to the first max", "g_s dropped", "x0.3 at p == 0")
 TAIL_ALPHA = 0.3
+CONV_SRC = "ugaitnet_tpu_torch/csrc/conv3x3.cu"
+CONV_PALLAS = "benchmarks/proto_conv.py:50"        # _p1_kernel (a_conv6)
+CONV_PALLAS_P2 = "benchmarks/proto_conv.py:135"    # _p2_kernel (a_conv2)
+PROBES_SRC = "ugaitnet_tpu_torch/csrc/probes.cu"
+MM_PALLAS = "benchmarks/proto_mm.py:33"
+COPY_PALLAS = "benchmarks/proto_mm.py:72"
+CONV_KERNELS = ("conv3x3_fwd_kernel",)
+PEAK_BF16 = 989e12              # dense bf16 tensor-core FLOP/s
+# the conv kernel (and mm_fwd) against its plain version on the same
+# inputs, per element: |kernel - plain| <= ulp(plain) + CONV_SUM_REL * S,
+# S = (|x| conv |w|) at that element in float32.  Both sum exact bf16
+# products in float32, in other orders: the sums differ by a few float32
+# roundings of S (K <= 1,152 terms; K eps32 S is 7e-5 S at worst), and
+# after the one rounding to bf16 by one ulp where that moves a value
+# across a rounding boundary.  Each planted fault must read above it.
+CONV_SUM_REL = 2.0 ** -12
+CONV_FAULTS = ("border tap dropped", "Ci and Co swapped",
+               "tap shifted a column")
+# the bf16 forward through the conv kernel against the same forward
+# through F.conv2d (cuDNN, bf16): the two may round a_conv2 and a_conv6
+# apart by an ulp, and eight more bf16 layers carry that on; read through
+# the sign_max merge (sign_max_rule) on the merge inputs and the outputs
+# with the cuDNN route's picks, each within ROUTE_REL of max.  Measured:
+# 0 on an H100 (the two routes gave the same bits at B = 128), 2.1e-3
+# between the plain conv and F.conv2d on the CPU (tests/test_torch_
+# conv3x3.py)
+ROUTE_REL = 1e-2
 
 
 def check(cond, msg):
@@ -903,6 +956,296 @@ def tail_phase(card):
     return out
 
 
+@contextlib.contextmanager
+def cudnn_conv():
+    """Within the block the GaitSet branches' a_conv2 and a_conv6 take
+    ``F.conv2d`` (cuDNN, bf16) where they would take the conv kernel (the
+    comparison runs of phases 2 and 6 only; nothing on the main path does
+    this)."""
+    import torch.nn.functional as F
+    from ugaitnet_tpu_torch.models import gaitset as GS
+    orig = GS.conv3x3_cuda
+    GS.conv3x3_cuda = lambda x, w: F.conv2d(x, w, padding=1)
+    try:
+        yield
+    finally:
+        GS.conv3x3_cuda = orig
+
+
+def route_readings(run):
+    """The bf16 forward ``run()`` (its output dict) through the conv kernel
+    against the same forward through ``F.conv2d`` (``cudnn_conv``), read by
+    ``sign_max_rule`` with the cuDNN route in the CPU's place: the merge
+    inputs, and the outputs with the cuDNN route's picks, within ROUTE_REL
+    of max."""
+    from ugaitnet_tpu_torch.ops.cuda import conv3x3 as CV
+    keys = ("signature", "classprob_logits")
+    CV.reset_launch_counts()
+    with torch.inference_mode(), cudnn_conv(), SignMaxTap() as tap:
+        out = run()
+    want = {k: out[k].float().cpu() for k in keys}
+    check(CV.launches == 0, f"the F.conv2d route launched conv3x3 "
+          f"{CV.launches}x")
+
+    def run_card():
+        with torch.inference_mode():
+            res = run()
+        return {k: res[k].float() for k in keys}
+    r = sign_max_rule(run_card, want, tap.calls)
+    # sign_max_rule runs the kernel route twice (own picks, forced picks)
+    check(CV.launches == 8, f"the kernel route launched conv3x3 "
+          f"{CV.launches}x in two forwards")
+    r["bitwise"] = r["branches"] == 0 and not any(r["raw"].values())
+    print(f"bf16 forward, conv kernel vs the F.conv2d route (bitwise "
+          f"{r['bitwise']}): merge inputs "
+          f"{r['branches']:.2e} of max; sign_max picks switched "
+          f"{r['switched']} of {r['picks']} ({r['near']} within twice that of"
+          f" a tie; the switched nearest a tie {r['tie']:.2e}); outputs raw /"
+          f" with the F.conv2d route's picks " + ", ".join(
+              f"{k} {r['raw'][k]:.2e} / {r['forced'][k]:.2e}" for k in keys)
+          + f" (limit {ROUTE_REL})")
+    for k in keys:
+        check(max(r["forced"][k], r["branches"]) <= ROUTE_REL,
+              f"bf16 {k}: conv kernel vs the F.conv2d route")
+    return r
+
+
+def bf16_ulp(v):
+    """The spacing of bfloat16 at |v| (0 at 0), in float32."""
+    m, e = torch.frexp(v.float().abs())
+    return torch.where(v == 0, torch.zeros_like(m),
+                       torch.ldexp(torch.ones_like(m), e - 8))
+
+
+def ulp_readings(got, want, s):
+    """max |got - want| / (ulp(want) + CONV_SUM_REL * s) (the limit is 1),
+    the largest error in bf16 ulps of want (where want != 0) and in units
+    of s, and the elements that differ."""
+    d = (got.float() - want.float()).abs()
+    ulp = bf16_ulp(want)
+    lim = ulp + CONV_SUM_REL * s
+    zero = torch.zeros_like(d)
+    return {"of_limit": float(torch.where(d == 0, zero, d / lim).max()),
+            "ulps": float(torch.where((d == 0) | (ulp == 0), zero,
+                                      d / ulp).max()),
+            "of_s": float(torch.where(d == 0, zero, d / s).max()),
+            "max_abs_err": float(d.max()), "differ": int((d != 0).sum())}
+
+
+def conv_abs(x, w):
+    """S = (|x| conv |w|) in float32: the scale of each output's sum."""
+    import torch.nn.functional as F
+    return F.conv2d(x.float().abs(), w.float().abs(), padding=1)
+
+
+def conv_fault(x, w, fault):
+    """The plain conv with one planted fault: output column 0 without its
+    right-hand taps (dj = 2); the weight's Ci and Co swapped (Ci == Co);
+    or the centre tap reading column j + 1."""
+    import torch.nn.functional as F
+    xf, wf = x.float(), w.float()
+    if fault == "Ci and Co swapped":
+        return F.conv2d(xf, wf.transpose(0, 1).contiguous(),
+                        padding=1).to(torch.bfloat16)
+    y = F.conv2d(xf, wf, padding=1)
+    tap = torch.zeros_like(wf)
+    if fault == "border tap dropped":
+        tap[..., 2] = wf[..., 2]
+        y[..., 0] -= F.conv2d(xf, tap, padding=1)[..., 0]
+    else:
+        tap[..., 1, 1] = wf[..., 1, 1]
+        shifted = F.pad(xf[..., 1:], (0, 1))
+        y += F.conv2d(shifted, tap, padding=1) - F.conv2d(xf, tap, padding=1)
+    return y.to(torch.bfloat16)
+
+
+def conv_phase(card):
+    """1c. The conv kernel against its plain version on the card, per
+    element within ulp + CONV_SUM_REL * S, at the flagship's a_conv6 and
+    a_conv2 (seed-0 weights), their TP halves, the tiny flagship's shapes,
+    ragged shapes and all-zero / all-constant frames; planted faults;
+    kernel, plain and cuDNN times against the bound."""
+    import torch.nn.functional as F
+    from ugaitnet_tpu_torch.models.gaitset import glorot_
+    from ugaitnet_tpu_torch.models.network import UGaitNet
+    from ugaitnet_tpu_torch.ops.conv3x3 import conv3x3
+    from ugaitnet_tpu_torch.ops.cuda import conv3x3 as CV
+    dev = torch.device("cuda")
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(12)
+    t_phase = time.perf_counter()
+    branch = UGaitNet(flagship_cfg(dtype="bfloat16"), seed=0).branches[
+        "branch_of"]
+    w6 = branch.a_conv6.weight.detach().to(bf16).contiguous()
+    w2 = branch.a_conv2.weight.detach().to(bf16).contiguous()
+    del branch
+
+    def glorot(ci, co):
+        return glorot_(torch.empty((co, ci, 3, 3), device=dev), 9 * ci,
+                       9 * co, gen).to(bf16)
+
+    # (name, N, Ci, H, W, w, fill)
+    cases = [("a_conv6", 3200, 128, 16, 16, w6, None),
+             ("a_conv2", 3200, 32, 64, 64, w2, None),
+             ("a_conv6 TP half (Ci 64)", 3200, 64, 16, 16,
+              w6[:, :64].contiguous(), None),
+             ("a_conv2 TP half (Ci 16)", 3200, 16, 64, 64,
+              w2[:, :16].contiguous(), None),
+             ("tiny 8 -> 8 at 64x64", 50, 8, 64, 64, glorot(8, 8), None),
+             ("tiny 16 -> 16 at 16x16", 50, 16, 16, 16, glorot(16, 16), None),
+             ("ragged (3, 7, 5, 5) -> 5", 3, 7, 5, 5, glorot(7, 5), None),
+             ("H != W (4, 12, 9, 20) -> 40", 4, 12, 9, 20, glorot(12, 40),
+              None),
+             ("N = 1, W > 128 (1, 33, 17, 130) -> 130", 1, 33, 17, 130,
+              glorot(33, 130), None),
+             ("all-zero frames", 25, 32, 64, 64, w2, 0.0),
+             ("all-constant frames", 25, 128, 16, 16, w6, 0.37)]
+    out = {"cases": {}, "times": {}}
+    worst = 0.0
+    for name, n, ci, h, w, wt, fill in cases:
+        x = torch.randn((n, ci, h, w), device=dev, generator=gen).to(bf16)
+        if fill is not None:
+            x.fill_(fill)
+        got = CV.launch(x, wt)
+        torch.cuda.synchronize()
+        want = conv3x3(x, wt)
+        s = conv_abs(x, wt)
+        r = ulp_readings(got, want, s)
+        r["shape"] = [n, ci, h, w, wt.shape[0]]
+        r["finite"] = bool(torch.isfinite(got.float()).all())
+        r["bitwise"] = bool(torch.equal(got, want))
+        worst = max(worst, r["max_abs_err"])
+        if name in ("a_conv6", "a_conv2"):
+            lib = F.conv2d(x, wt, padding=1)
+            r["cudnn"] = ulp_readings(lib, want, s)
+            r["kernel_vs_cudnn_differ"] = int((got != lib).sum())
+            del lib
+            r["faults"] = {f: ulp_readings(conv_fault(x, wt, f), want, s)[
+                "of_limit"] for f in CONV_FAULTS}
+        out["cases"][name] = r
+        print(f"conv3x3 {name} x {tuple(x.shape)} w {tuple(wt.shape)}: "
+              f"max |kernel - plain| {r['max_abs_err']:.3e} = "
+              f"{r['of_limit']:.3f} of the limit (ulp + 2^-12 S), "
+              f"{r['ulps']:.2f} ulp, {r['of_s']:.2e} S; {r['differ']} of "
+              f"{got.numel()} elements differ"
+              + (f"; cuDNN bf16 {r['cudnn']['of_limit']:.3f} of the limit "
+                 f"({r['cudnn']['ulps']:.2f} ulp, {r['cudnn']['differ']} "
+                 f"differ; kernel vs cuDNN: {r['kernel_vs_cudnn_differ']} "
+                 f"differ); planted faults "
+                 + ", ".join(f"{f} {v:.1f}" for f, v in r["faults"].items())
+                 if "faults" in r else "") + f" [{card}]")
+        check(r["finite"] and r["of_limit"] <= 1.0,
+              f"conv3x3 {name}: kernel vs plain")
+        if "faults" in r:
+            check(r["cudnn"]["of_limit"] <= 1.0,
+                  f"conv3x3 {name}: cuDNN vs plain")
+            check(all(v > 1.0 for v in r["faults"].values()),
+                  f"conv3x3 {name}: a planted fault passes the limit")
+        if name in ("a_conv6", "a_conv2"):
+            co = wt.shape[0]
+            t = {"ms": cuda_ms(lambda: CV.launch(x, wt)),
+                 "plain_ms": cuda_ms(lambda: conv3x3(x, wt), 10),
+                 "library_ms": cuda_ms(lambda: F.conv2d(x, wt, padding=1))}
+            nbytes = (x.numel() + wt.numel() + n * co * h * w) * 2
+            t["bound_ms"], t["bound_by"] = bound(
+                nbytes, 2 * n * h * w * co * ci * 9, PEAK_BF16)
+            if name == "a_conv6":      # the profiler's device time too
+                t["dev"] = device_ms(lambda: CV.launch(x, wt), CONV_KERNELS)
+                check(set(t["dev"]) == set(CONV_KERNELS),
+                      f"the profiler saw no conv3x3 kernel: {t}")
+            out["times"][name] = t
+            print(f"conv3x3 times {name} {tuple(x.shape)} -> {co}: kernel "
+                  f"{t['ms']:.4f} ms (CUDA events, 20 launches), plain "
+                  f"{t['plain_ms']:.4f} ms, cuDNN bf16 F.conv2d "
+                  f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+                  f"({t['bound_by']}, {nbytes / 1e9:.3f} GB, "
+                  f"{2 * n * h * w * co * ci * 9 / 1e9:.1f} GFLOP)"
+                  + (f"; torch.profiler device ms {t['dev']}"
+                     if "dev" in t else "") + f" [{card}]")
+        del x, got, want, s
+    out["max_abs_err"] = worst
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"phase 1c: {out['phase_s']:.1f} s")
+    return out
+
+
+def probe_phase(card):
+    """1d. mm_fwd against its plain version (ulp + CONV_SUM_REL * S) at
+    the prototype's M and K, timed beside cuBLAS; scale2 bitwise against
+    x * 2 on the prototype's batch-minor view, timed with and without the
+    transpose."""
+    from ugaitnet_tpu_torch.ops.cuda import probes as PR
+    dev = torch.device("cuda")
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(13)
+    t_phase = time.perf_counter()
+    PR.reset_launch_counts()
+    out = {"mm": {}, "copy": {}}
+    m = 262144
+    for k in (576, 1152, 2304):
+        x = (torch.randn((m, k), device=dev, generator=gen) * 0.1).to(bf16)
+        w = (torch.randn((k // 128, 128, 128), device=dev, generator=gen)
+             * 0.1).to(bf16)
+        got = PR.mm_fwd(x, w)
+        torch.cuda.synchronize()
+        want = PR.mm_plain(x, w)
+        # the prototype's kernel reads 128 (K // 128) columns of x
+        kw = 128 * (k // 128)
+        w2 = w.reshape(kw, 128)
+        s = x[:, :kw].float().abs() @ w2.float().abs()
+        r = ulp_readings(got, want, s)
+        r["cublas"] = ulp_readings(torch.matmul(x[:, :kw], w2), want, s)
+        r["ms"] = cuda_ms(lambda: PR.mm_fwd(x, w))
+        r["plain_ms"] = cuda_ms(lambda: PR.mm_plain(x, w), 10)
+        r["library_ms"] = cuda_ms(lambda: torch.matmul(x[:, :kw], w2))
+        nbytes = (m * kw + kw * 128 + m * 128) * 2
+        r["bound_ms"], r["bound_by"] = bound(nbytes, 2 * m * kw * 128,
+                                             PEAK_BF16)
+        out["mm"][k] = r
+        print(f"mm_fwd M={m} K={k}: max |kernel - plain| "
+              f"{r['max_abs_err']:.3e} = {r['of_limit']:.3f} of the limit, "
+              f"{r['ulps']:.2f} ulp (cuBLAS {r['cublas']['of_limit']:.3f} of"
+              f" it); kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+              f"cuBLAS bf16 {r['library_ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}) [{card}]")
+        check(bool(torch.isfinite(got.float()).all())
+              and r["of_limit"] <= 1.0, f"mm_fwd K={k}: kernel vs plain")
+        del x, w, w2, got, want, s
+    b, t = 128, 25
+    x = (torch.randn((b, t, 32, 32, 32), device=dev, generator=gen)
+         * 0.1).to(bf16)
+
+    def transposed():
+        return x.permute(1, 2, 3, 4, 0).contiguous().view(t * 32 ** 3, b)
+
+    xt = transposed()
+    same = torch.equal(PR.scale2(xt), PR.scale2_plain(xt)) and torch.equal(
+        PR.scale2(x), x * 2)
+    c = {"bitwise": same,
+         "ms": cuda_ms(lambda: PR.scale2(x)),
+         "with_transpose_ms": cuda_ms(lambda: PR.scale2(transposed())),
+         "transpose_ms": cuda_ms(transposed),
+         "plain_ms": cuda_ms(lambda: PR.scale2_plain(xt)),
+         "library_ms": cuda_ms(lambda: x * 2)}
+    c["bound_ms"], c["bound_by"] = bound(2 * x.numel() * 2, x.numel())
+    out["copy"] = c
+    print(f"scale2 on (T*32*32*32, B) = {tuple(xt.shape)} bf16: bitwise to "
+          f"x * 2 {same}; kernel {c['ms']:.4f} ms without the transpose, "
+          f"{c['with_transpose_ms']:.4f} ms with it (the transpose alone "
+          f"{c['transpose_ms']:.4f} ms); torch x * 2 {c['library_ms']:.4f} "
+          f"ms; bound {c['bound_ms']:.4f} ms ({c['bound_by']}, "
+          f"{2 * x.numel() * 2 / 1e9:.4f} GB) [{card}]")
+    check(same, "scale2 vs x * 2")
+    out["launches"] = {"mm_fwd": PR.mm_launches,
+                       "scale2": PR.scale2_launches}
+    del x, xt
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"phase 1d: {out['phase_s']:.1f} s")
+    return out
+
+
 def tail_vs_plain_step(mcfg, tcfg, before, batch):
     """Phase 3's step from the state ``before`` (model and optimizer state
     dicts, step count) on ``batch`` through the stage-tail kernels, and the
@@ -1255,6 +1598,58 @@ def eval_phase(model, gallery_ds, probe_ds, card):
     return out
 
 
+def bf16_serve_checks(svc, raw):
+    """The bf16 service: 4 conv3x3 launches per identify_raw (one per
+    bucket), and its labels on 128 probes against the F.conv2d route's
+    outside near ties: a probe whose 3rd and 4th float64 d^2 (the F.conv2d
+    route's codes to the gallery) lie within twice the largest |d^2| the
+    route moves for that probe may vote either way."""
+    from ugaitnet_tpu_torch.ops.cuda import conv3x3 as CV
+    CV.reset_launch_counts()
+    for b in BUCKETS:
+        svc.identify_raw(raw(np.arange(b)))
+    calls = CV.launches
+    check(calls == 4 * len(BUCKETS), f"bf16 identify_raw: {calls} conv3x3 "
+          f"launches in {len(BUCKETS)} calls")
+    feed = raw(np.arange(128))
+    lab_k, _ = svc.identify_raw(feed)
+    codes_k = svc.encode_raw(feed)
+    with cudnn_conv():
+        lab_c, _ = svc.identify_raw(feed)
+        codes_c = svc.encode_raw(feed)
+    check(svc._rows_used == len(svc._host_labels), "gallery rows")
+    g = svc._gallery_codes[:svc._rows_used].double()
+
+    def d2(codes):
+        p = torch.from_numpy(codes).to(g.device).double()
+        return ((p * p).sum(1, keepdim=True) + (g * g).sum(1)[None]
+                - 2.0 * p @ g.T)
+    d2_c, d2_k = d2(codes_c), d2(codes_k)
+    # at least phase 5's near-tie width, for the float32 kNN's rounding
+    fourth = torch.topk(d2_c, 4, dim=1, largest=False).values[:, 3]
+    eps = torch.maximum((d2_k - d2_c).abs().amax(dim=1),
+                        KNN_TIE_REL * fourth).cpu().numpy()
+    firm, bad = labels_outside_near_ties(d2_c, svc._host_labels, lab_k, 3,
+                                         eps)
+    _, bad_c = labels_outside_near_ties(d2_c, svc._host_labels, lab_c, 3,
+                                        eps)
+    diff = lab_k != lab_c
+    r = {"launches": calls, "calls": len(BUCKETS),
+         "labels_differ": int(diff.sum()),
+         "near_ties": int((~firm).sum()), "differ_off_near_ties": bad,
+         "code_rel_err": float(np.abs(codes_k - codes_c).max()
+                               / np.abs(codes_c).max())}
+    print(f"bf16 serve: conv3x3 launches {calls} in {len(BUCKETS)} "
+          f"identify_raw calls; labels of 128 probes vs the F.conv2d route: "
+          f"{r['labels_differ']} differ, {r['near_ties']} near ties (3rd and "
+          f"4th d^2 within twice the route's largest |d^2| change), "
+          f"{bad} differ from the float64 vote off them (the F.conv2d route "
+          f"{bad_c}); codes max |d| {r['code_rel_err']:.2e} of max")
+    check(bad == 0 and bad_c == 0 and not (diff & firm).any(),
+          "bf16 identify_raw labels: conv kernel vs F.conv2d off near ties")
+    return r
+
+
 def serve_phase(make_model, gallery_ds, probe_ds, card, big=65536):
     """SignatureService at the flagship's width: identify per bucket,
     enroll/remove, and a gallery of `big` random codes.  make_model(dtype)
@@ -1284,6 +1679,8 @@ def serve_phase(make_model, gallery_ds, probe_ds, card, big=65536):
               + f" [{card}]")
         if dtype == "float32":
             fp32 = svc
+        else:
+            out["bf16_conv_route"] = bf16_serve_checks(svc, raw)
     svc = fp32
     # one identify_raw per bucket: one forward of each branch, 2 stage-tail
     # launches each
@@ -4257,6 +4654,7 @@ def main():
     from ugaitnet_tpu_torch.data.pipeline import preprocess_batch
     from ugaitnet_tpu_torch.models.network import UGaitNet
     from ugaitnet_tpu_torch.ops.cuda import build
+    from ugaitnet_tpu_torch.ops.cuda import conv3x3 as CV
     from ugaitnet_tpu_torch.ops.cuda import stage_tail as ST
     from ugaitnet_tpu_torch.ops.cuda import triplet_kernel as K
     from ugaitnet_tpu_torch.ops.triplet import (batch_all_triplet_loss,
@@ -4278,7 +4676,7 @@ def main():
     t0 = time.perf_counter()
     # one nvcc per source, all started together, then load them
     from concurrent.futures import ThreadPoolExecutor
-    sources = ("triplet_kernel", "stage_tail")
+    sources = ("triplet_kernel", "stage_tail", "conv3x3", "probes")
     with ThreadPoolExecutor(len(sources)) as pool:
         list(pool.map(build.build, sources))
     for name in sources:
@@ -4421,40 +4819,69 @@ def main():
     # ---- 1b. the stage tail kernels vs plain -------------------------------
     tail_res = tail_phase(card)
 
+    # ---- 1c. the conv kernel vs plain; 1d. the probes ----------------------
+    conv_res = conv_phase(card)
+    probe_res = probe_phase(card)
+
     # ---- full-width flagship ----------------------------------------------
     dcfg = DataConfig()
     mods = (("of", "gray"), (2, 1), (100.0, 1.0), 2)
 
     # ---- 2. embed ------------------------------------------------------------
     raw = raw_batch(128, 1, seed=1)
-    embed = {}
+    embed, embed_conv = {}, {}
+    iters = 10
     for dtype in ("float32", "bfloat16"):
         model = UGaitNet(flagship_cfg(dtype=dtype), seed=0)
         model.eval()
-        iters = 10
 
-        def embed_once(i):
+        def embed_once(i, out="signature"):
             r = dict(raw)
             r["raw_of"] = raw["raw_of"] ^ i
             r["raw_gray"] = raw["raw_gray"] ^ i
             vols, flags, _ = preprocess_batch(r, *mods, 1, False, dcfg)
-            return model(vols, flags)["signature"]
+            res = model(vols, flags)
+            return res[out] if out else res
 
+        def embed_ms():
+            with torch.inference_mode():
+                acc = torch.zeros((), device=dev)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for i in range(1, iters + 1):
+                    acc += embed_once(i).sum()
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3 / iters
+            check(bool(torch.isfinite(acc)), "embed checksum")
+            return ms
+
+        CV.reset_launch_counts()
         with torch.inference_mode():
             sig = embed_once(0)
             check(tuple(sig.shape) == (128, 62, 256), f"signature {sig.shape}")
             check(bool(torch.isfinite(sig).all()), "signature not finite")
-            acc = torch.zeros((), device=dev)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for i in range(1, iters + 1):
-                acc += embed_once(i).sum()
-            torch.cuda.synchronize()
-            ms = (time.perf_counter() - t0) * 1e3 / iters
-        check(bool(torch.isfinite(acc)), "embed checksum")
+        ms = embed_ms()
+        # a_conv2 and a_conv6 of both branches, in bf16 only
+        embed_conv[dtype] = CV.launches
+        want_conv = 4 * (iters + 1) if dtype == "bfloat16" else 0
+        check(CV.launches == want_conv, f"embed {dtype}: {CV.launches} "
+              f"conv3x3 launches over {iters + 1} forwards, not {want_conv}")
         embed[dtype] = ms
         print(f"embed {dtype}: preprocess + forward B=128 {ms:.2f} ms/batch,"
-              f" {128e3 / ms:.1f} clips/s [{card}]")
+              f" {128e3 / ms:.1f} clips/s; conv3x3 launches "
+              f"{CV.launches} over {iters + 1} forwards [{card}]")
+        if dtype == "bfloat16":
+            route = route_readings(lambda: embed_once(0, None))
+            ab = {"kernel": [], "cudnn": []}
+            for which in ("kernel", "cudnn", "cudnn", "kernel"):
+                with (cudnn_conv() if which == "cudnn"
+                      else contextlib.nullcontext()):
+                    ab[which].append(embed_ms())
+            route["ab_ms"] = ab
+            embed_route = route
+            print(f"embed bfloat16 in turns (kernel, F.conv2d, F.conv2d, "
+                  f"kernel): conv kernel {ab['kernel']} ms/batch, F.conv2d "
+                  f"{ab['cudnn']} ms/batch [{card}]")
         del model
 
     # ---- 3. train: the main path -------------------------------------------
@@ -4472,6 +4899,7 @@ def main():
     torch.cuda.reset_peak_memory_stats()
     K.reset_launch_counts()
     ST.reset_launch_counts()
+    CV.reset_launch_counts()
     for i in range(nsteps):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -4492,14 +4920,16 @@ def main():
         losses.append({k: float(v) for k, v in metrics.items()})
     hook.remove()
     launches = {"triplet_fwd": K.fwd_launches, "triplet_bwd": K.bwd_launches,
-                "tail_fwd": ST.fwd_launches, "tail_bwd": ST.bwd_launches}
+                "tail_fwd": ST.fwd_launches, "tail_bwd": ST.bwd_launches,
+                "conv3x3": CV.launches}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     check(tuple(vols[0].shape) == (120, 25, 60, 60, 2), "train batch")
     for m in losses:
         check(all(np.isfinite(v) for v in m.values()), f"train metrics {m}")
     # 2 branches x stages 1-2: 4 stage-tail launches each way per step
     check(launches == {"triplet_fwd": nsteps, "triplet_bwd": nsteps,
-                       "tail_fwd": 4 * nsteps, "tail_bwd": 4 * nsteps},
+                       "tail_fwd": 4 * nsteps, "tail_bwd": 4 * nsteps,
+                       "conv3x3": 0},
           f"kernel launches {launches} over {nsteps} steps")
     train_ms = float(np.median(step_ms[warmup:]))
     print(f"train: {nsteps} steps B=120, losses "
@@ -4532,6 +4962,7 @@ def main():
     bf_state = init_state(UGaitNet(bf_cfg, seed=0), tcfg)
     bf_step = make_train_step(bf_cfg, tcfg)
     bf_ms = []
+    CV.reset_launch_counts()
     for i in range(nsteps):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -4540,8 +4971,11 @@ def main():
         bf_ms.append((time.perf_counter() - t0) * 1e3)
         check(np.isfinite(float(m["loss"])), "bf16 train loss")
     bf_train_ms = float(np.median(bf_ms[warmup:]))
+    bf_conv = CV.launches
     print(f"train bfloat16: step {bf_train_ms:.2f} ms (median of steps "
-          f"{warmup + 1}-{nsteps}, same batch, preprocess excluded) [{card}]")
+          f"{warmup + 1}-{nsteps}, same batch, preprocess excluded); conv3x3"
+          f" launches {bf_conv} [{card}]")
+    check(bf_conv == 0, f"the bf16 train step launched conv3x3 {bf_conv}x")
     del bf_state
     tail_ab = tail_ab_steps({"float32": mcfg, "bfloat16": bf_cfg}, tcfg,
                             batch, card)
@@ -4747,6 +5181,49 @@ def main():
                              "plain_ms": v[f"plain_{d}_ms"],
                              "bound_ms": v[f"{d}_bound"][0]}
                          for k, v in tail_res["times"].items()}})
+    # the conv kernel: times at a_conv6 (the _p1_kernel shape; a_conv2's,
+    # the _p2_kernel shape, under "by_shape"); launches of phase 2's bf16
+    # embed (the main path of this slice), by path the train steps and the
+    # bf16 service's identify_raw (one per bucket)
+    c6 = conv_res["times"]["a_conv6"]
+    kernels.append({
+        "name": "conv3x3_fwd", "route": "cuda", "source": CONV_SRC,
+        "replaces": CONV_PALLAS, "also_replaces": CONV_PALLAS_P2,
+        "launches": embed_conv["bfloat16"],
+        "launches_by_path": {
+            "embed_bf16": embed_conv["bfloat16"],
+            "embed_fp32": embed_conv["float32"],
+            "embed_forwards": iters + 1,
+            "train_step": launches["conv3x3"],
+            "train_step_bf16": bf_conv,
+            "identify_raw_bf16": serve_res["bf16_conv_route"]["launches"],
+            "identify_raw_calls": serve_res["bf16_conv_route"]["calls"]},
+        "max_abs_err": conv_res["max_abs_err"], "ms": c6["ms"],
+        "plain_ms": c6["plain_ms"], "bound_ms": c6["bound_ms"],
+        "bound_by": c6["bound_by"], "library_ms": c6["library_ms"],
+        "by_shape": conv_res["times"]})
+    mm = probe_res["mm"][1152]
+    kernels.append({
+        "name": "mm_fwd", "route": "cuda", "source": PROBES_SRC,
+        "replaces": MM_PALLAS,
+        "launches": probe_res["launches"]["mm_fwd"],
+        "launches_by_path": {"probe_phase": probe_res["launches"]["mm_fwd"]},
+        "max_abs_err": mm["max_abs_err"], "ms": mm["ms"],
+        "plain_ms": mm["plain_ms"], "bound_ms": mm["bound_ms"],
+        "bound_by": mm["bound_by"], "library_ms": mm["library_ms"],
+        "by_shape": {f"K={k}": {f: v[f] for f in (
+            "ms", "plain_ms", "bound_ms", "library_ms")}
+            for k, v in probe_res["mm"].items()}})
+    cp = probe_res["copy"]
+    kernels.append({
+        "name": "scale2", "route": "cuda", "source": PROBES_SRC,
+        "replaces": COPY_PALLAS,
+        "launches": probe_res["launches"]["scale2"],
+        "launches_by_path": {"probe_phase": probe_res["launches"]["scale2"]},
+        "max_abs_err": 0.0, "ms": cp["ms"], "plain_ms": cp["plain_ms"],
+        "bound_ms": cp["bound_ms"], "bound_by": cp["bound_by"],
+        "library_ms": cp["library_ms"],
+        "with_transpose_ms": cp["with_transpose_ms"]})
     print(json.dumps({"card": card, "embed_ms_per_batch": embed,
                       "train_step_ms": train_ms,
                       "train_step_bf16_ms": bf_train_ms,
@@ -4766,6 +5243,8 @@ def main():
                       "branches": branch_res, "surface": surface_res,
                       "joint": joint_res, "parallel": parallel_res,
                       "tp_pp": tp_res, "stage_tail": tail_res,
+                      "conv3x3": conv_res, "probes": probe_res,
+                      "embed_bf16_route": embed_route,
                       "train_tail_step": tail_step,
                       "train_tail_ab": tail_ab}))
     print(f"wall time {time.perf_counter() - t_start:.1f} s")

@@ -19,14 +19,23 @@ symmetric with a zero diagonal, the per-part counts equal the active
 triplets that torch counts over the kernel's own dist, and the backward's
 g equals those integer counts times the scale, bitwise.  The stage tail is
 held bitwise in float32 and bfloat16, forward and gradient, ties included,
-and an exported program calls its kernel.  With two cards or more, the
+and an exported program calls its kernel.  The bf16 3x3 conv kernel is
+held to its plain version per element within one bf16 ulp plus 2^-12 x
+(|x| conv |w|) (chip_smoke.py's CONV_SUM_REL: float32 sums in another
+order, one rounding), and so is the GEMM probe (|x| @ |w|); the copy probe
+is bitwise.  With two cards or more, the
 kernels and a GaitSet branch run on a card that is not the current device,
 and pipeline parallelism places a branch on cuda:1 (skipped on one card)."""
+
+import dataclasses
 
 import numpy as np
 import pytest
 import torch
 
+from ugaitnet_tpu_torch.ops.conv3x3 import conv3x3
+from ugaitnet_tpu_torch.ops.cuda import conv3x3 as CV
+from ugaitnet_tpu_torch.ops.cuda import probes as PR
 from ugaitnet_tpu_torch.ops.cuda import stage_tail as ST
 from ugaitnet_tpu_torch.ops.cuda import triplet_kernel as K
 from ugaitnet_tpu_torch.ops.pooling import stage_tail
@@ -366,6 +375,97 @@ def test_cuda_stage_tail_export_calls_the_kernel(cuda, tmp_path):
     ap, sp = stage_tail(x, 2, 0.3)
     assert torch.equal(a, ap) and torch.equal(s, sp)
     assert (ST.fwd_launches, ST.bwd_launches) == (1, 0)
+
+
+# ---- the bf16 3x3 conv (ops/cuda/conv3x3.py) and the probes --------------
+def _within_limit(got, want, s):
+    """max |got - want| / (ulp(want) + 2^-12 s) <= 1 (a bf16 ulp is
+    2^(e - 8) for |want| in [2^(e-1), 2^e))."""
+    m, e = torch.frexp(want.float().abs())
+    ulp = torch.where(want == 0, torch.zeros_like(m),
+                      torch.ldexp(torch.ones_like(m), e - 8))
+    d = (got.float() - want.float()).abs()
+    lim = ulp + 2.0 ** -12 * s
+    return bool(((d == 0) | (d <= lim)).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,ci,co,h,w", [(4, 32, 32, 64, 64),
+                                         (8, 128, 128, 16, 16),
+                                         (3, 7, 5, 5, 5), (2, 12, 40, 9, 20),
+                                         (1, 33, 130, 17, 130)])
+def test_cuda_conv3x3_matches_plain(cuda, n, ci, co, h, w):
+    """a_conv2's and a_conv6's shapes at a few frames, and ragged ones
+    (Ci 7 -> Co 5 at 5x5, H != W, W > 128 with Co > 128)."""
+    g = torch.Generator(device=cuda).manual_seed(n * ci + co)
+    x = torch.randn((n, ci, h, w), device=cuda, generator=g).bfloat16()
+    wt = (torch.randn((co, ci, 3, 3), device=cuda, generator=g)
+          * (2.0 / (9 * (ci + co))) ** 0.5).bfloat16()
+    CV.reset_launch_counts()
+    got = CV.conv3x3_cuda(x, wt)
+    torch.cuda.synchronize()
+    want = conv3x3(x, wt)
+    s = torch.nn.functional.conv2d(x.float().abs(), wt.float().abs(),
+                                   padding=1)
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    assert _within_limit(got, want, s)
+    assert CV.launches == 1
+
+
+@pytest.mark.cuda
+def test_cuda_conv3x3_raises(cuda):
+    x = torch.randn(2, 4, 8, 8, device=cuda).bfloat16()
+    w = torch.randn(4, 4, 3, 3, device=cuda).bfloat16()
+    with pytest.raises(ValueError, match="bfloat16"):
+        CV.conv3x3_op(x.float(), w)
+    with pytest.raises(ValueError, match="contiguous"):
+        CV.conv3x3_cuda(x.transpose(2, 3), w)
+
+
+@pytest.mark.cuda
+def test_cuda_conv3x3_launches_in_a_bf16_branch_pair_without_grad(cuda):
+    """4 launches per bf16 two-branch forward without autograd (a_conv2
+    and a_conv6 of each), none with grad on or in float32."""
+    from ugaitnet_tpu_torch.models.network import UGaitNet
+    batch = _tiny_batch(cuda)
+    for dtype, grad, want in (("bfloat16", False, 4), ("bfloat16", True, 0),
+                              ("float32", False, 0)):
+        cfg = dataclasses.replace(_tiny_gaitset(), compute_dtype=dtype)
+        model = UGaitNet(cfg, seed=0, device=cuda)
+        CV.reset_launch_counts()
+        with torch.set_grad_enabled(grad):
+            out = model(list(batch.volumes), list(batch.use_flags))
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(out["signature"]).all())
+        assert CV.launches == want, (dtype, grad)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k", [(300, 1152), (128, 576), (1000, 256)])
+def test_cuda_mm_fwd_matches_plain(cuda, m, k):
+    g = torch.Generator(device=cuda).manual_seed(m + k)
+    x = (torch.randn((m, k), device=cuda, generator=g) * 0.1).bfloat16()
+    w = (torch.randn((k // 128, 128, 128), device=cuda, generator=g)
+         * 0.1).bfloat16()
+    PR.reset_launch_counts()
+    got = PR.mm_fwd(x, w)
+    torch.cuda.synchronize()
+    kw = 128 * (k // 128)
+    s = x[:, :kw].float().abs() @ w.reshape(kw, 128).float().abs()
+    assert _within_limit(got, PR.mm_plain(x, w), s)
+    assert PR.mm_launches == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(4096, 128), (1001, 3), (7,)])
+def test_cuda_scale2_bitwise(cuda, shape):
+    x = torch.randn(shape, device=cuda).bfloat16()
+    PR.reset_launch_counts()
+    got = PR.scale2(x)
+    assert torch.equal(got, x * 2)
+    y = x.reshape(-1)[1:]                             # not 16-byte aligned
+    assert torch.equal(PR.scale2(y), y * 2)
+    assert PR.scale2_launches == 2
 
 
 # ---- kernels on a card that is not the current device -------------------

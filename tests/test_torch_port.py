@@ -327,7 +327,8 @@ def test_entry_points_default_to_cuda():
     assert resolve_device("cpu").type == "cpu"
 
 
-BANNED = {"jax", "flax", "optax", "orbax", "ugaitnet_tpu"}
+# the JAX prototypes under benchmarks/ import JAX too
+BANNED = {"jax", "flax", "optax", "orbax", "ugaitnet_tpu", "benchmarks"}
 # modules of the later slices, which must be among those scanned
 TRAINER_SLICE = ("train/schedule.py", "train/trainer.py", "obsv/logger.py",
                  "utils/net_utils.py", "data/native.py", "core/checkpoint.py",
@@ -340,7 +341,8 @@ TRAINER_SLICE = ("train/schedule.py", "train/trainer.py", "obsv/logger.py",
                  "cli/sweep.py", "parallel/sharding.py",
                  "parallel/sequence.py", "parallel/expert.py",
                  "parallel/dryrun.py", "ops/moe.py", "ops/collectives.py",
-                 "ops/cuda/stage_tail.py")
+                 "ops/cuda/stage_tail.py", "ops/conv3x3.py",
+                 "ops/cuda/conv3x3.py", "ops/cuda/probes.py")
 
 
 def _port_sources():

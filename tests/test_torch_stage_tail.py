@@ -359,13 +359,16 @@ def test_export_records_the_op(cpu_standin, tmp_path):
 
 def test_export_names_the_module_of_each_op():
     """The loader imports the module of each op in ``meta["custom_ops"]``
-    before it loads a program: for the stage tail, the module that
-    registers it."""
+    before it loads a program: for the stage tail and the bf16 3x3 conv,
+    the module that registers each."""
     from ugaitnet_tpu_torch.eval import export as E
-    assert set(E.CUSTOM_OP_MODULES) == {"ugaitnet::stage_tail"}
-    mod = E.CUSTOM_OP_MODULES["ugaitnet::stage_tail"]
-    assert importlib.import_module(mod) is ST
-    assert hasattr(torch.ops.ugaitnet, "stage_tail")
+    from ugaitnet_tpu_torch.ops.cuda import conv3x3 as CV
+    assert set(E.CUSTOM_OP_MODULES) == {"ugaitnet::stage_tail",
+                                        "ugaitnet::conv3x3"}
+    for op, module in (("stage_tail", ST), ("conv3x3", CV)):
+        mod = E.CUSTOM_OP_MODULES[f"ugaitnet::{op}"]
+        assert importlib.import_module(mod) is module
+        assert hasattr(torch.ops.ugaitnet, op)
 
 
 def test_gaitset_branch_calls_the_dispatcher_twice(monkeypatch):

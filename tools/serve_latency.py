@@ -2,20 +2,23 @@
 for the port in this checkout or in another checkout of the repository,
 and profile one bucket-1 call.
 
-    python3 tools/serve_latency.py [--root DIR]
+    python3 tools/serve_latency.py [--root DIR] [--dtype bfloat16]
 
 --root: the checkout whose ``ugaitnet_tpu_torch`` is timed (default: the
-one holding this script), so two versions can be compared on one card in
-one session: run old, new, new, old.
+one holding this script), so two versions can be compared on one card
+in turns: run old, new, new, old.  --dtype: the net's compute dtype
+(float32, the default, or bfloat16, whose forward takes the conv3x3
+kernel where the checkout has one).
 
 Builds the flagship at full width (two GaitSet branches, sign_max, 74
-classes, float32, TF32 off) with weights from seed 0, a 2,200-code random
+classes, TF32 off) with weights from seed 0, a 2,200-code random
 unit-norm gallery, and random raw int16 OF / uint8 gray query volumes on
 the host.  Prints the card (nvidia-smi name and power limit) and one JSON
 line: the root, the median host-clock ms of ``identify_raw`` per bucket
 over ITERS calls after a warm-up, and the profile of one bucket-1 call
-(device busy ms under torch.profiler, its wall ms, and the host ops with
-the most self CPU time).  Exits non-zero without a card.
+(device busy ms under torch.profiler, its wall ms, the host ops with the
+most self CPU time and the kernels with the most device time).  Exits
+non-zero without a card.
 """
 
 import argparse
@@ -37,6 +40,8 @@ def main():
     here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=here)
+    ap.add_argument("--dtype", default="float32",
+                    choices=("float32", "bfloat16"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("serve_latency: no CUDA device")
@@ -55,7 +60,8 @@ def main():
 
     cfg = ModelConfig(branches=(BranchConfig(kind="gaitset", modality="of"),
                                 BranchConfig(kind="gaitset", modality="gray")),
-                      merge="sign_max", nclasses=74)
+                      merge="sign_max", nclasses=74,
+                      compute_dtype=args.dtype)
     svc = SignatureService(UGaitNet(cfg, seed=0), ("of", "gray"), knn=3,
                            buckets=BUCKETS)
     rng = np.random.RandomState(0)
@@ -88,16 +94,23 @@ def main():
         t0 = time.perf_counter()
         svc.identify_raw(feeds[1])
         wall = (time.perf_counter() - t0) * 1e3
-    busy = sum(e.time_range.elapsed_us() for e in prof.events()
-               if e.device_type == DeviceType.CUDA) / 1e3
+    kernels = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            kernels[e.name] = kernels.get(e.name, 0.0) \
+                + e.time_range.elapsed_us() / 1e3
+    busy = sum(kernels.values())
+    top_dev = sorted(((k[:80], round(v, 4)) for k, v in kernels.items()),
+                     key=lambda kv: -kv[1])[:8]
     host = sorted(prof.key_averages(), key=lambda a: -a.self_cpu_time_total)
     top = [(a.key, a.count, round(a.self_cpu_time_total / 1e3, 4))
            for a in host[:8]]
-    print(json.dumps({"root": root, "card": card,
+    print(json.dumps({"root": root, "card": card, "dtype": args.dtype,
                       "identify_raw_ms_median": ms, "iters": ITERS,
                       "bucket1_profile": {"wall_ms": wall,
                                           "device_busy_ms": busy,
-                                          "top_self_cpu_ms": top}}))
+                                          "top_self_cpu_ms": top,
+                                          "top_device_ms": top_dev}}))
 
 
 if __name__ == "__main__":

@@ -22,9 +22,11 @@ exporting service's only under the same ``torch.backends`` TF32 flags
 (the port's parity setting is off).
 
 On the card the GaitSet stage tail is the custom op
-``ugaitnet::stage_tail`` (``ops/cuda/stage_tail.py``), which the program
-records as it records aten ops, so an artifact serves through the same
-kernel as the service.  ``meta["custom_ops"]`` lists the port's ops a
+``ugaitnet::stage_tail`` (``ops/cuda/stage_tail.py``), and in a bf16 net
+a_conv2 and a_conv6 are ``ugaitnet::conv3x3`` (``ops/cuda/conv3x3.py``;
+the export traces without autograd), which the program records as it
+records aten ops, so an artifact serves through the same kernels as the
+service.  ``meta["custom_ops"]`` lists the port's ops a
 program calls; the loader imports the module that registers each (kernel
 code, which builds nothing at import) and still no model code.
 """
@@ -47,6 +49,7 @@ from ugaitnet_tpu_torch.core.device import DeviceLike, resolve_device
 # import registers each
 CUSTOM_OP_MODULES = {
     "ugaitnet::stage_tail": "ugaitnet_tpu_torch.ops.cuda.stage_tail",
+    "ugaitnet::conv3x3": "ugaitnet_tpu_torch.ops.cuda.conv3x3",
 }
 
 

@@ -27,6 +27,18 @@ the plain chain (``ops/pooling.py:stage_tail``) on the CPU.  With
 (outputs bf16) and the part projection takes bf16 inputs with float32
 accumulation and output, where the JAX module casts.
 
+The frame stream's a_conv2 and a_conv6 (``HAND_CONVS``) take the hand 3x3
+kernel (``ops/cuda/conv3x3.py:conv3x3_cuda``: the CUDA kernel on the card,
+the plain ``ops/conv3x3.py:conv3x3`` on the CPU) when the branch runs in
+bf16 and no gradient is recorded (``torch.is_grad_enabled()`` is off, as
+under the encode's ``inference_mode`` and serving's ``no_grad``, or neither
+the input nor the weight requires grad); every other call, the fp32 paths
+and the bf16 train step among them, is ``F.conv2d``.  The kernel has no
+backward, which the train step would need.  This is a route chosen by
+dtype and grad mode, not a fallback: on the card a bf16 call without
+autograd to those layers always launches the kernel, 4 per two-branch
+forward.
+
 Sequence parallelism (``parallel/sequence.py``): with ``seq_group`` set the
 branch holds only its rank's frames, and each set pool is the local max
 over them (the stage tail's s), gathered over the group and maxed again;
@@ -56,12 +68,16 @@ from torch import nn
 
 from ugaitnet_tpu_torch.ops.collectives import (all_gather_rows, copy_in,
                                                 reduce_out)
+from ugaitnet_tpu_torch.ops.cuda.conv3x3 import conv3x3_cuda
 from ugaitnet_tpu_torch.ops.cuda.stage_tail import stage_tail_cuda
 from ugaitnet_tpu_torch.ops.moe import moe_capacity, moe_project
 from ugaitnet_tpu_torch.ops.pooling import max_pool_2x2
 
 A_CONVS = ("a_conv1", "a_conv2", "a_conv3", "a_conv4", "a_conv5", "a_conv6")
 B_CONVS = ("b_conv1", "b_conv2", "b_conv3", "b_conv4")
+# the 3x3 convs of the bf16 forward without autograd that take the hand
+# kernel (the TPU prototypes' two shapes)
+HAND_CONVS = ("a_conv2", "a_conv6")
 
 
 def glorot_(t: torch.Tensor, fan_in: int, fan_out: int,
@@ -76,19 +92,25 @@ def glorot_(t: torch.Tensor, fan_in: int, fan_out: int,
 class FrameConv(nn.Module):
     """Bias-free "SAME" 2D conv on NCHW, weight OIHW.  The frame stream
     calls it with T folded into the batch (the JAX ``FrameConv``'s off-TPU
-    form); the set stream calls it on (B, C, H, W) (the JAX ``nn.Conv``)."""
+    form); the set stream calls it on (B, C, H, W) (the JAX ``nn.Conv``).
+    ``hand``: a 3x3 whose bf16 calls without autograd take the hand kernel
+    (module docstring)."""
 
     def __init__(self, ci: int, co: int, k: int, dtype: torch.dtype,
-                 generator: Optional[torch.Generator]):
+                 generator: Optional[torch.Generator], hand: bool = False):
         super().__init__()
         self.dtype = dtype
+        self.hand = hand and k == 3
         self.weight = nn.Parameter(glorot_(torch.empty((co, ci, k, k)),
                                            k * k * ci, k * k * co, generator))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        w = self.weight
-        return F.conv2d(x.to(self.dtype), w.to(self.dtype),
-                        padding=w.shape[-1] // 2)
+        x, w = x.to(self.dtype), self.weight.to(self.dtype)
+        if self.hand and self.dtype == torch.bfloat16 and not (
+                torch.is_grad_enabled()
+                and (x.requires_grad or w.requires_grad)):
+            return conv3x3_cuda(x, w)
+        return F.conv2d(x, w, padding=w.shape[-1] // 2)
 
 
 def _group_max(out: torch.Tensor, seq_group=None) -> torch.Tensor:
@@ -141,7 +163,8 @@ class GaitSetBranch(nn.Module):
                    (c2, c2, 3), (c2, c3, 3), (c3, c3, 3)]
         b_specs = [(c1, c2, 3), (c2, c2, 3), (c2, c3, 3), (c3, c3, 3)]
         for name, (ci, co, k) in zip(A_CONVS + B_CONVS, a_specs + b_specs):
-            setattr(self, name, FrameConv(ci, co, k, dtype, generator))
+            setattr(self, name, FrameConv(ci, co, k, dtype, generator,
+                                          hand=name in HAND_CONVS))
         nparts = 2 * sum(self.hpp_bins)
         if moe_experts > 0:
             e = moe_experts

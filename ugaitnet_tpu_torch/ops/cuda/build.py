@@ -3,7 +3,8 @@
 Each source has a plain C interface and is compiled by ``nvcc`` for Hopper
 (``sm_90a``) at first use, then loaded with ``ctypes``.  The library goes to
 ``build/kernels/`` beside the package (listed in ``.gitignore``) and is
-rebuilt when its source is newer.  Nothing is built at import time.
+rebuilt when its source, or a header of ``csrc`` (``*.cuh``), is newer.
+Nothing is built at import time.
 """
 
 from __future__ import annotations
@@ -44,7 +45,9 @@ def build(name: str) -> str:
     ``<name>.log`` beside the library."""
     src = os.path.join(CSRC, f"{name}.cu")
     lib = os.path.join(BUILD_DIR, f"lib{name}.so")
-    if os.path.exists(lib) and os.path.getmtime(lib) >= os.path.getmtime(src):
+    newest = max(os.path.getmtime(p) for p in [src] + [
+        os.path.join(CSRC, h) for h in os.listdir(CSRC) if h.endswith(".cuh")])
+    if os.path.exists(lib) and os.path.getmtime(lib) >= newest:
         return lib
     os.makedirs(BUILD_DIR, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
