@@ -46,12 +46,20 @@ channels (32, 64, 128), part_dim 256, 62 parts, sign_max merge, 74 classes):
      x (|x| conv |w|); three planted faults (a border tap dropped, Ci and
      Co of the weight swapped, a tap shifted by a column) must read above
      that; kernel, plain and cuDNN (bf16 ``F.conv2d``, held to the same
-     limit) times against the bound;
+     limit) times against the bound; the flagship shapes and their halves
+     must take the Hopper variant (TMA ring + wgmma), the ragged ones the
+     general one, as the per-variant launch counters read; each timed
+     kernel line gives its share of the bound, its factor to cuDNN and the
+     time of the general variant at the same shape (the earlier mma.sync
+     kernel, held to the same limit), measured here as ``earlier_ms``;
  1d. the probes (``csrc/probes.cu``): mm_fwd at M = 262,144, K in (576,
      1152, 2304) against its plain version within the same limit, timed
-     beside cuBLAS (bf16 ``torch.matmul``); scale2 bitwise against x * 2 on
-     the prototype's (T*32*32*32, 128) view of a (128, 25, 32, 32, 32) bf16
-     tensor, timed with and without the transpose, against the bytes bound;
+     beside cuBLAS (bf16 ``torch.matmul``), with its share of the bound,
+     its factor to cuBLAS and the earlier kernel's time, quoted
+     (EARLIER_MM_MS: that kernel is no longer built); scale2 bitwise
+     against x * 2 on the prototype's (T*32*32*32, 128) view of a (128, 25,
+     32, 32, 32) bf16 tensor, timed with and without the transpose, against
+     the bytes bound;
   2. embed: preprocess_batch on raw int16 OF / uint8 gray at B = 128, then
      the forward, in float32 and bfloat16 (inputs perturbed every batch);
      the bf16 forward launches the conv kernel exactly 4 times (a_conv2
@@ -231,8 +239,9 @@ Gradient limits scale with each case, and every run reads planted faults
 (a backward without the g^T term, with the negative role's sign flipped,
 or returning zeros) against them: a limit that passes a fault fails the run.
 
-The compiler's report (-Xptxas -v) is printed, and a kernel that spills
-registers fails the run.
+The compiler's report (-Xptxas -v) is printed, registers and static shared
+memory per instantiation as a table, and a kernel that spills registers
+fails the run.
 
 Stage-tail launches are counted on the main paths too: 2 per GaitSet branch
 forward on the card in phase 5's encode and phase 7's fit (4 per train
@@ -257,6 +266,7 @@ import importlib.util
 import io
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -392,6 +402,13 @@ CONV_PALLAS_P2 = "benchmarks/proto_conv.py:135"    # _p2_kernel (a_conv2)
 PROBES_SRC = "ugaitnet_tpu_torch/csrc/probes.cu"
 MM_PALLAS = "benchmarks/proto_mm.py:33"
 COPY_PALLAS = "benchmarks/proto_mm.py:72"
+# the earlier mm_fwd kernel's times (mma.sync, synchronous staging; H100
+# 80GB HBM3, 700 W, CUDA events over 20 launches, PERF.md section 6),
+# quoted beside this run's in phase 1d's print lines and nowhere else
+EARLIER_MM_MS = {576: 0.4055, 1152: 0.8410, 2304: 1.6006}
+# the cases of phase 1c that must take the Hopper variant
+HOPPER_CASES = ("a_conv6", "a_conv2", "a_conv6 TP half (Ci 64)",
+                "a_conv2 TP half (Ci 16)")
 CONV_KERNELS = ("conv3x3_fwd_kernel",)
 PEAK_BF16 = 989e12              # dense bf16 tensor-core FLOP/s
 # the conv kernel (and mm_fwd) against its plain version on the same
@@ -1102,16 +1119,28 @@ def conv_phase(card):
              ("all-constant frames", 25, 128, 16, 16, w6, 0.37)]
     out = {"cases": {}, "times": {}}
     worst = 0.0
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for name, n, ci, h, w, wt, fill in cases:
         x = torch.randn((n, ci, h, w), device=dev, generator=gen).to(bf16)
         if fill is not None:
             x.fill_(fill)
+        p = CV.plan(n, ci, wt.shape[0], h, w, sms)
+        before = dict(CV.variant_launches)
         got = CV.launch(x, wt)
         torch.cuda.synchronize()
+        taken = [k for k in before
+                 if CV.variant_launches[k] == before[k] + 1]
+        check(taken == [p.variant], f"conv3x3 {name}: plan chose "
+              f"{p.variant}, the counters read {CV.variant_launches}")
+        if name in HOPPER_CASES:
+            check(p.variant == "hopper",
+                  f"conv3x3 {name} did not take the Hopper variant")
         want = conv3x3(x, wt)
         s = conv_abs(x, wt)
         r = ulp_readings(got, want, s)
         r["shape"] = [n, ci, h, w, wt.shape[0]]
+        r["variant"] = p.variant
+        r["plan"] = dataclasses.asdict(p)
         r["finite"] = bool(torch.isfinite(got.float()).all())
         r["bitwise"] = bool(torch.equal(got, want))
         worst = max(worst, r["max_abs_err"])
@@ -1123,7 +1152,9 @@ def conv_phase(card):
             r["faults"] = {f: ulp_readings(conv_fault(x, wt, f), want, s)[
                 "of_limit"] for f in CONV_FAULTS}
         out["cases"][name] = r
-        print(f"conv3x3 {name} x {tuple(x.shape)} w {tuple(wt.shape)}: "
+        print(f"conv3x3 {name} x {tuple(x.shape)} w {tuple(wt.shape)} "
+              f"[{p.variant}: tile {p.tr}x{p.tw}, BN {p.bn}, CC {p.cc}, "
+              f"{p.stages} stages, grid {p.grid}, {p.smem} B shared]: "
               f"max |kernel - plain| {r['max_abs_err']:.3e} = "
               f"{r['of_limit']:.3f} of the limit (ulp + 2^-12 S), "
               f"{r['ulps']:.2f} ulp, {r['of_s']:.2e} S; {r['differ']} of "
@@ -1149,21 +1180,37 @@ def conv_phase(card):
             nbytes = (x.numel() + wt.numel() + n * co * h * w) * 2
             t["bound_ms"], t["bound_by"] = bound(
                 nbytes, 2 * n * h * w * co * ci * 9, PEAK_BF16)
+            t["share_of_bound"] = t["bound_ms"] / t["ms"]
+            t["factor_to_library"] = t["ms"] / t["library_ms"]
+            t["variant"] = p.variant
+            # the general variant (the earlier mma.sync kernel) at this
+            # shape, held to the same limit and timed beside the Hopper one
+            gen_y = CV.launch(x, wt, general=True)
+            t["earlier_of_limit"] = ulp_readings(gen_y, want, s)["of_limit"]
+            del gen_y
+            check(t["earlier_of_limit"] <= 1.0,
+                  f"conv3x3 {name}: the general variant vs plain")
+            t["earlier_ms"] = cuda_ms(lambda: CV.launch(x, wt, general=True))
             if name == "a_conv6":      # the profiler's device time too
                 t["dev"] = device_ms(lambda: CV.launch(x, wt), CONV_KERNELS)
                 check(set(t["dev"]) == set(CONV_KERNELS),
                       f"the profiler saw no conv3x3 kernel: {t}")
             out["times"][name] = t
-            print(f"conv3x3 times {name} {tuple(x.shape)} -> {co}: kernel "
-                  f"{t['ms']:.4f} ms (CUDA events, 20 launches), plain "
+            print(f"conv3x3 times {name} {tuple(x.shape)} -> {co} "
+                  f"[{p.variant}]: kernel {t['ms']:.4f} ms (CUDA events, 20 "
+                  f"launches; the general variant {t['earlier_ms']:.4f}, "
+                  f"{t['earlier_of_limit']:.3f} of the limit), plain "
                   f"{t['plain_ms']:.4f} ms, cuDNN bf16 F.conv2d "
-                  f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+                  f"{t['library_ms']:.4f} ms ({t['factor_to_library']:.2f}x"
+                  f" of it), bound {t['bound_ms']:.4f} ms "
                   f"({t['bound_by']}, {nbytes / 1e9:.3f} GB, "
-                  f"{2 * n * h * w * co * ci * 9 / 1e9:.1f} GFLOP)"
+                  f"{2 * n * h * w * co * ci * 9 / 1e9:.1f} GFLOP; "
+                  f"{t['share_of_bound']:.1%} of it)"
                   + (f"; torch.profiler device ms {t['dev']}"
                      if "dev" in t else "") + f" [{card}]")
         del x, got, want, s
     out["max_abs_err"] = worst
+    out["variant_launches"] = dict(CV.variant_launches)
     torch.cuda.empty_cache()
     out["phase_s"] = time.perf_counter() - t_phase
     print(f"phase 1c: {out['phase_s']:.1f} s")
@@ -1202,15 +1249,27 @@ def probe_phase(card):
         nbytes = (m * kw + kw * 128 + m * 128) * 2
         r["bound_ms"], r["bound_by"] = bound(nbytes, 2 * m * kw * 128,
                                              PEAK_BF16)
+        r["share_of_bound"] = r["bound_ms"] / r["ms"]
+        r["factor_to_library"] = r["ms"] / r["library_ms"]
+        r["variant"] = "hopper"
+        r["plan"] = dataclasses.asdict(PR.mm_plan(
+            m, torch.cuda.get_device_properties(dev).multi_processor_count))
         out["mm"][k] = r
-        print(f"mm_fwd M={m} K={k}: max |kernel - plain| "
+        print(f"mm_fwd M={m} K={k} [TMA ring + wgmma, grid "
+              f"{r['plan']['grid']}]: max |kernel - plain| "
               f"{r['max_abs_err']:.3e} = {r['of_limit']:.3f} of the limit, "
-              f"{r['ulps']:.2f} ulp (cuBLAS {r['cublas']['of_limit']:.3f} of"
-              f" it); kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-              f"cuBLAS bf16 {r['library_ms']:.4f} ms, bound "
-              f"{r['bound_ms']:.4f} ms ({r['bound_by']}) [{card}]")
+              f"{r['ulps']:.2f} ulp, {r['differ']} differ (cuBLAS "
+              f"{r['cublas']['of_limit']:.3f} of it); kernel {r['ms']:.4f} "
+              f"ms (the earlier kernel {EARLIER_MM_MS[k]:.4f}, quoted, not "
+              f"measured here), plain "
+              f"{r['plain_ms']:.4f} ms, cuBLAS bf16 {r['library_ms']:.4f} ms "
+              f"({r['factor_to_library']:.2f}x of it), bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}; "
+              f"{r['share_of_bound']:.1%} of it) [{card}]")
         check(bool(torch.isfinite(got.float()).all())
               and r["of_limit"] <= 1.0, f"mm_fwd K={k}: kernel vs plain")
+        check(r["cublas"]["of_limit"] <= 1.0, f"mm_fwd K={k}: cuBLAS vs "
+              f"plain")
         del x, w, w2, got, want, s
     b, t = 128, 25
     x = (torch.randn((b, t, 32, 32, 32), device=dev, generator=gen)
@@ -4646,6 +4705,72 @@ def tp_pp_phase(card, work, experdir, gallery_dir, probe_dir, one_results):
     return out
 
 
+def _demangle(names):
+    """``name<template args>`` of each mangled kernel symbol, by the
+    toolkit's ``cu++filt`` (beside nvcc), without its namespace, return
+    type and parameter list."""
+    from ugaitnet_tpu_torch.ops.cuda.build import nvcc_path
+    if not names:
+        return names
+    filt = os.path.join(os.path.dirname(nvcc_path()), "cu++filt")
+    out = subprocess.run([filt, *names], capture_output=True, text=True,
+                         check=True).stdout.splitlines()
+    check(len(out) == len(names), f"cu++filt gave {out} for {names}")
+    short = []
+    for d in out:
+        d = re.sub(r"^void |<unnamed>::|\(anonymous namespace\)::|"
+                   r"\((?:unsigned )?(?:int|long|bool)\)", "", d.strip())
+        depth = 0
+        for i, ch in enumerate(d):     # the parameter list starts at the
+            depth += {"<": 1, ">": -1}.get(ch, 0)   # first "(" outside <>
+            if ch == "(" and depth == 0:
+                d = d[:i]
+                break
+        short.append(d)
+    return short
+
+
+def ptxas_report(build_dir, sources):
+    """The -Xptxas -v report of each source's build (``<name>.log``) as a
+    table: registers, static shared memory and spill bytes per kernel
+    instantiation (the dynamic shared memory is plan()'s, printed with each
+    launch), and ptxas's performance warnings (wgmma serialisation) as
+    they are.  Fails the run if an instantiation spills; returns the
+    rows."""
+    rows, warnings = [], []
+    for name in sources:
+        with open(os.path.join(build_dir, f"{name}.log")) as f:
+            for ln in f:
+                m = re.search(r"Compiling entry function '([^']+)'", ln)
+                if m:
+                    rows.append({"kernel": m.group(1),
+                                 "registers": None, "smem": 0, "spill": None})
+                    continue
+                m = re.search(r"Used (\d+) registers", ln)
+                if m and rows:
+                    rows[-1]["registers"] = int(m.group(1))
+                    s = re.search(r"(\d+) bytes smem", ln)
+                    rows[-1]["smem"] = int(s.group(1)) if s else 0
+                m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                              r"loads", ln)
+                if m and rows:
+                    rows[-1]["spill"] = int(m.group(1)) + int(m.group(2))
+                if "Performance" in ln:
+                    warnings.append(ln.strip())
+    for r, name in zip(rows, _demangle([r["kernel"] for r in rows])):
+        r["kernel"] = name
+    print("ptxas per instantiation (registers, static shared memory bytes, "
+          "spill bytes):")
+    for r in rows:
+        print(f"  {r['kernel']:40s} {r['registers']:4d} regs "
+              f"{r['smem']:7d} B smem  spill {r['spill']}")
+    for w in warnings:
+        print(f"  ptxas: {w}")
+    check(rows and all(r["spill"] == 0 for r in rows),
+          "a kernel spills registers")
+    return rows
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device")
@@ -4690,15 +4815,7 @@ def main():
           "the native gather did not build (host C++ compiler)")
     print(f"native gather build: {time.perf_counter() - t0:.1f} s "
           f"({native.LIB_PATH})")
-    ptxas = []
-    for name in sources:
-        with open(f"{build.BUILD_DIR}/{name}.log") as f:
-            ptxas += [ln.strip() for ln in f if "registers" in ln
-                      or "spill" in ln or "Compiling entry" in ln]
-    print("ptxas: " + " | ".join(ptxas))
-    spills = [ln for ln in ptxas if "spill" in ln]
-    check(spills and all("0 bytes spill stores, 0 bytes spill loads" in ln
-                         for ln in spills), "a kernel spills registers")
+    ptxas_report(build.BUILD_DIR, sources)
 
     # ---- 1. kernels vs plain ---------------------------------------------
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -4866,10 +4983,14 @@ def main():
         want_conv = 4 * (iters + 1) if dtype == "bfloat16" else 0
         check(CV.launches == want_conv, f"embed {dtype}: {CV.launches} "
               f"conv3x3 launches over {iters + 1} forwards, not {want_conv}")
+        # the flagship's shapes take the Hopper variant
+        check(CV.variant_launches["hopper"] == want_conv,
+              f"embed {dtype}: conv3x3 variants {CV.variant_launches}")
         embed[dtype] = ms
         print(f"embed {dtype}: preprocess + forward B=128 {ms:.2f} ms/batch,"
               f" {128e3 / ms:.1f} clips/s; conv3x3 launches "
-              f"{CV.launches} over {iters + 1} forwards [{card}]")
+              f"{CV.launches} over {iters + 1} forwards "
+              f"({CV.variant_launches}) [{card}]")
         if dtype == "bfloat16":
             route = route_readings(lambda: embed_once(0, None))
             ab = {"kernel": [], "cudnn": []}
@@ -5201,6 +5322,11 @@ def main():
         "max_abs_err": conv_res["max_abs_err"], "ms": c6["ms"],
         "plain_ms": c6["plain_ms"], "bound_ms": c6["bound_ms"],
         "bound_by": c6["bound_by"], "library_ms": c6["library_ms"],
+        "share_of_bound": c6["share_of_bound"],
+        "factor_to_library": c6["factor_to_library"],
+        "variant": c6["variant"],
+        "variant_launches": conv_res["variant_launches"],
+        "earlier_ms": c6["earlier_ms"],
         "by_shape": conv_res["times"]})
     mm = probe_res["mm"][1152]
     kernels.append({
@@ -5211,8 +5337,12 @@ def main():
         "max_abs_err": mm["max_abs_err"], "ms": mm["ms"],
         "plain_ms": mm["plain_ms"], "bound_ms": mm["bound_ms"],
         "bound_by": mm["bound_by"], "library_ms": mm["library_ms"],
+        "share_of_bound": mm["share_of_bound"],
+        "factor_to_library": mm["factor_to_library"],
+        "variant": mm["variant"],
         "by_shape": {f"K={k}": {f: v[f] for f in (
-            "ms", "plain_ms", "bound_ms", "library_ms")}
+            "ms", "plain_ms", "bound_ms", "library_ms", "share_of_bound",
+            "factor_to_library")}
             for k, v in probe_res["mm"].items()}})
     cp = probe_res["copy"]
     kernels.append({

@@ -16,6 +16,14 @@ the CPU.
 - ``_mm_kernel`` (M = 128, mt = 64, K = 576) against ``probes.mm_plain``
   within the same limit, ``_copy_kernel`` against ``probes.scale2_plain``
   bitwise.
+- The kernels' launch geometry: ``plan`` (variant, tile, grid, ring,
+  shared memory) and the schedule each persistent CTA walks, replayed in
+  plain torch (the TMA boxes' addressing, zeros out of bounds): every
+  output element written once, the result bitwise ``conv3x3`` /
+  ``mm_plain``.  The walks here mirror the kernels' (``csrc/conv3x3.cu``,
+  ``csrc/probes.cu``), so the replay checks that the schedule covers the
+  output; that the kernels walk it so, only the card tests
+  (``test_torch_cuda.py``) check.
 - The dispatcher: a CPU tensor takes the plain version with no launch;
   the custom op's fake gives shapes and refuses what the kernel refuses;
   with a CPU stand-in for the op's kernel, registered by this file only,
@@ -342,22 +350,188 @@ def test_dispatcher_cpu_route_counts_no_launch():
 
 
 @pytest.mark.parametrize("n, ci, co, h, w, plan", [
-    (3200, 128, 128, 16, 16, (8, 16, 128, 6400)),     # a_conv6
-    (3200, 32, 32, 64, 64, (2, 64, 32, 102400)),      # a_conv2
-    (3200, 64, 128, 16, 16, (8, 16, 128, 6400)),      # TP halves
-    (3200, 16, 32, 64, 64, (2, 64, 32, 102400)),
-    (3, 7, 5, 5, 5, (5, 5, 32, 3)),                   # ragged
-    (1, 33, 130, 17, 130, (1, 128, 128, 68)),         # W > 128, Co > 128
+    (3200, 128, 128, 16, 16, ("hopper", 8, 16, 64, 132, 4)),    # a_conv6
+    (3200, 32, 32, 64, 64, ("hopper", 4, 64, 32, 132, 4)),      # a_conv2
+    (3200, 64, 128, 16, 16, ("hopper", 8, 16, 64, 132, 4)),     # TP halves
+    (3200, 16, 32, 64, 64, ("hopper", 4, 64, 32, 132, 4)),
+    (3, 7, 5, 5, 5, ("general", 5, 5, 32, 3, 1)),               # ragged
+    (1, 33, 130, 17, 130, ("general", 1, 128, 128, 68, 1)),     # W > 128
 ])
 def test_launch_plan(n, ci, co, h, w, plan):
-    """Tiles of at most 128 pixels (whole rows where a row fits), and
-    the shared memory the kernel's formula asks for, under the H100's."""
+    """The variant and its tile, output channels a CTA, grid and ring
+    depth; the shared memory the kernel's formula asks for, under the
+    H100's.  Hopper: tiles of whole rows of 64, 128 or 256 pixels, one
+    persistent CTA an SM, a grid that keeps each CTA on one Co tile.
+    General: tiles of at most 128 pixels (whole rows where a row fits),
+    one CTA a tile and Co tile."""
     p = CV.plan(n, ci, co, h, w)
-    assert (p.tr, p.tw, p.bn, p.grid) == plan
+    assert (p.variant, p.tr, p.tw, p.bn, p.grid, p.stages) == plan
     # 232,448 bytes: the dynamic shared memory of an H100 CTA
-    assert p.tr * p.tw <= CV.TILE_PIXELS and p.smem <= 232_448
-    assert p.smem == (9 * p.bn + (p.tr + 2) * (p.tw + 2)) * 80
-    assert p.wp_numel == 9 * (-(-co // p.bn) * p.bn) * (-(-ci // 32) * 32)
+    assert p.smem <= 232_448
+    if p.variant == "hopper":
+        assert p.tw == w and p.tr * p.tw in (64, 128, 256)
+        assert p.grid <= CV.SMS and p.grid % p.n_co == 0
+        assert p.smem == CV.hopper_smem(p.tr, w, p.bn, p.cc,
+                                        -(-ci // p.cc), p.stages)
+    else:
+        assert p.tr * p.tw <= CV.TILE_PIXELS
+        assert p.smem == (9 * p.bn + (p.tr + 2) * (p.tw + 2)) * 80
+    assert p.wp_numel == 9 * (-(-co // p.bn) * p.bn) * (-(-ci // p.cc) *
+                                                         p.cc)
+
+
+@pytest.mark.parametrize("n, ci, co, h, w", [
+    (3200, 128, 128, 16, 16), (3200, 32, 32, 64, 64)])
+def test_plan_without_tma_takes_general(n, ci, co, h, w):
+    """Where the Hopper variant may not run (an x that does not start on a
+    16-byte boundary, or ``launch(..., general=True)``), the flagship
+    shapes plan the general variant: tiles of 128 pixels in whole rows,
+    one CTA a tile and Co tile."""
+    p = CV.plan(n, ci, co, h, w, hopper=False)
+    assert p.variant == "general" and p.stages == 1
+    assert p.tw == w and p.tr * p.tw == CV.TILE_PIXELS
+    assert p.grid == n * p.tiles_h * p.tiles_w * p.n_co
+
+
+def _conv_walk(p, cta):
+    """(n, row0, col0, co0) of each tile CTA ``cta`` computes, in the order
+    the kernels take them, as ``csrc/conv3x3.cu`` walks them.  Hopper: CTA
+    c keeps Co tile c % n_co and walks tiles c // n_co, + grid // n_co, ...
+    (its consumer warpgroups take them in turn).  General: one tile and
+    Co tile a CTA, the Co tile fastest."""
+    if p.variant == "hopper":
+        co0 = (cta % p.n_co) * p.bn
+        for t in range(cta // p.n_co, p.n * p.tiles_h, p.grid // p.n_co):
+            yield t // p.tiles_h, (t % p.tiles_h) * p.tr, 0, co0
+        return
+    tile, co0 = cta // p.n_co, (cta % p.n_co) * p.bn
+    per_frame = p.tiles_h * p.tiles_w
+    t = tile % per_frame
+    yield (tile // per_frame, (t // p.tiles_w) * p.tr,
+           (t % p.tiles_w) * p.tw, co0)
+
+
+def _mm_walk(p, cta):
+    """The first row of each 256-row tile CTA ``cta`` of ``mm_fwd``
+    computes, in order, as ``csrc/probes.cu`` walks them."""
+    return [t * PR.MM_ROWS for t in range(cta, p.tiles, p.grid)]
+
+
+def _tma_box(x, f, c0, nc, r0, nr, q0, nq):
+    """x[f, c0:c0 + nc, r0:r0 + nr, q0:q0 + nq] with zeros wherever the box
+    leaves x, as a TMA box's out-of-bounds fill reads it."""
+    out = torch.zeros((nc, nr, nq), dtype=x.dtype)
+    ci, h, w = x.shape[1:]
+    cs, ce = max(c0, 0), min(c0 + nc, ci)
+    rs, re = max(r0, 0), min(r0 + nr, h)
+    qs, qe = max(q0, 0), min(q0 + nq, w)
+    if cs < ce and rs < re and qs < qe:
+        out[cs - c0:ce - c0, rs - r0:re - r0, qs - q0:qe - q0] = \
+            x[f, cs:ce, rs:re, qs:qe]
+    return out
+
+
+def _replay_conv(x, w, p):
+    """The kernels' schedule in plain torch: for each CTA of ``p.grid`` and
+    each tile it walks, the band as the kernel addresses it (Hopper: one
+    TMA box (W, tr + 2, cc) a stage at (0, row0 - 1, ch cc); general: the
+    zero-haloed (tr + 2) x (tw + 2) band of all Ci), convolved by the plain
+    ``conv3x3`` and written to the tile's rows, columns and Co tile.  The
+    band is set into a zero frame of x's size, so that the plain conv sums
+    each output in the order it does on x.  Returns y and the number of
+    writes of each element."""
+    n, ci, h, wd = x.shape
+    co = w.shape[0]
+    frames, tiles = [], []
+    for cta in range(p.grid):
+        for f, row0, col0, co0 in _conv_walk(p, cta):
+            if p.variant == "hopper":
+                q0, nq = 0, wd
+                band = torch.cat([
+                    _tma_box(x, f, ch * p.cc, p.cc, row0 - 1, p.tr + 2, 0,
+                             wd) for ch in range(-(-ci // p.cc))])[:ci]
+            else:
+                q0, nq = col0 - 1, p.tw + 2
+                band = _tma_box(x, f, 0, ci, row0 - 1, p.tr + 2, q0, nq)
+            frame = torch.zeros((ci, h, wd), dtype=x.dtype)
+            rs, re = max(row0 - 1, 0), min(row0 + p.tr + 1, h)
+            qs, qe = max(q0, 0), min(q0 + nq, wd)
+            frame[:, rs:re, qs:qe] = band[:, rs - row0 + 1:re - row0 + 1,
+                                          qs - q0:qe - q0]
+            frames.append(frame)
+            tiles.append((f, row0, col0, co0))
+    out = conv3x3(torch.stack(frames), w)
+    y = torch.zeros((n, co, h, wd), dtype=torch.bfloat16)
+    hits = torch.zeros((n, co, h, wd), dtype=torch.int32)
+    for i, (f, row0, col0, co0) in enumerate(tiles):
+        sel = (slice(co0, co0 + p.bn), slice(row0, row0 + p.tr),
+               slice(col0, col0 + p.tw))
+        y[f][sel] = out[i][sel]
+        hits[f][sel] += 1
+    return y, hits
+
+
+@pytest.mark.parametrize("n, ci, co, h, w, sms", [
+    (2, 128, 128, 16, 16, 6),      # a_conv6 at small N: 8 items, 6 CTAs
+    (3, 32, 32, 64, 64, 5),        # a_conv2: 48 tiles over 5 CTAs
+    (2, 64, 128, 16, 16, 4),       # TP halves
+    (2, 16, 32, 64, 64, 7),
+    (2, 32, 32, 13, 64, 3),        # H not a multiple of the tile's rows
+    (2, 48, 40, 32, 32, 3),        # W = 32, Co < BN
+    (2, 48, 40, 64, 64, 3),        # W = 64 with BN = 64: 2-row tiles
+    (3, 7, 5, 5, 5, 132),          # ragged: the general variant
+    (4, 12, 40, 9, 20, 132),
+    (1, 33, 130, 17, 130, 132),
+])
+def test_conv_schedule_replay(n, ci, co, h, w, sms):
+    """Every output element is written by exactly one (CTA, tile, Co tile)
+    of ``plan``'s schedule, and the replay equals ``conv3x3`` bitwise: the
+    boxes' coordinates, the halo rows and columns, the channel stages and
+    the ragged last tiles address what the conv needs.  A small ``sms``
+    makes each persistent CTA walk several tiles."""
+    rng = np.random.RandomState(n * 1000 + ci + co)
+    x = torch.from_numpy(rng.randn(n, ci, h, w).astype(np.float32)).to(
+        torch.bfloat16)
+    wt = torch.from_numpy((rng.randn(co, ci, 3, 3) * 0.2).astype(
+        np.float32)).to(torch.bfloat16)
+    p = CV.plan(n, ci, co, h, w, sms=sms)
+    assert p.variant == ("general" if w not in (16, 32, 64) else "hopper")
+    if p.variant == "hopper":
+        assert p.grid == min(sms // p.n_co * p.n_co, n * p.tiles_h * p.n_co)
+    y, hits = _replay_conv(x, wt, p)
+    assert bool((hits == 1).all())
+    assert torch.equal(y, conv3x3(x, wt))
+
+
+@pytest.mark.parametrize("m, k, sms", [
+    (1, 128, 132),                 # below one tile
+    (255, 256, 132),
+    (1000, 576, 3),                # 4 tiles over 3 CTAs, the last ragged
+    (513, 1152, 2),
+    (5 * 256 + 64, 256, 4),
+])
+def test_mm_schedule_replay(m, k, sms):
+    """mm_fwd's tile walk: each persistent CTA's 256-row tiles, x's rows
+    past M read as zero (the box's fill) and never stored; every row
+    written once, and the replay equals ``mm_plain`` bitwise."""
+    rng = np.random.RandomState(m + k)
+    x = torch.from_numpy((rng.randn(m, k) * .1).astype(np.float32)).to(
+        torch.bfloat16)
+    w = torch.from_numpy((rng.randn(k // 128, 128, 128) * .1).astype(
+        np.float32)).to(torch.bfloat16)
+    p = PR.mm_plan(m, sms)
+    assert p.grid == min(sms, -(-m // PR.MM_ROWS))
+    y = torch.zeros((m, 128), dtype=torch.bfloat16)
+    hits = torch.zeros(m, dtype=torch.int32)
+    for cta in range(p.grid):
+        for r0 in _mm_walk(p, cta):
+            tile = torch.zeros((PR.MM_ROWS, k), dtype=torch.bfloat16)
+            rows = min(PR.MM_ROWS, m - r0)
+            tile[:rows] = x[r0:r0 + rows]
+            y[r0:r0 + rows] = PR.mm_plain(tile, w)[:rows]
+            hits[r0:r0 + rows] += 1
+    assert bool((hits == 1).all())
+    assert torch.equal(y, PR.mm_plain(x, w))
 
 
 def test_op_fake_shapes_and_refusals():

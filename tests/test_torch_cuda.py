@@ -390,13 +390,18 @@ def _within_limit(got, want, s):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,ci,co,h,w", [(4, 32, 32, 64, 64),
-                                         (8, 128, 128, 16, 16),
-                                         (3, 7, 5, 5, 5), (2, 12, 40, 9, 20),
-                                         (1, 33, 130, 17, 130)])
-def test_cuda_conv3x3_matches_plain(cuda, n, ci, co, h, w):
-    """a_conv2's and a_conv6's shapes at a few frames, and ragged ones
-    (Ci 7 -> Co 5 at 5x5, H != W, W > 128 with Co > 128)."""
+@pytest.mark.parametrize("n,ci,co,h,w,variant", [
+    (4, 32, 32, 64, 64, "hopper"), (8, 128, 128, 16, 16, "hopper"),
+    (8, 64, 128, 16, 16, "hopper"), (4, 16, 32, 64, 64, "hopper"),
+    (135, 128, 128, 16, 16, "hopper"), (133, 32, 32, 64, 64, "hopper"),
+    (3, 7, 5, 5, 5, "general"), (2, 12, 40, 9, 20, "general"),
+    (1, 33, 130, 17, 130, "general")])
+def test_cuda_conv3x3_matches_plain(cuda, n, ci, co, h, w, variant):
+    """a_conv2's and a_conv6's shapes at a few frames, their TP halves (Ci
+    64 and 16), N that leave the persistent grid's last wave partial (135
+    frames of a_conv6: 540 tiles on 132 CTAs; 133 of a_conv2: 2,128), and
+    ragged ones (Ci 7 -> Co 5 at 5x5, H != W, W > 128 with Co > 128).  The
+    flagship shapes and their halves take the Hopper variant."""
     g = torch.Generator(device=cuda).manual_seed(n * ci + co)
     x = torch.randn((n, ci, h, w), device=cuda, generator=g).bfloat16()
     wt = (torch.randn((co, ci, 3, 3), device=cuda, generator=g)
@@ -410,6 +415,34 @@ def test_cuda_conv3x3_matches_plain(cuda, n, ci, co, h, w):
     assert got.dtype == torch.bfloat16 and got.shape == want.shape
     assert _within_limit(got, want, s)
     assert CV.launches == 1
+    assert CV.variant_launches == {"hopper": int(variant == "hopper"),
+                                   "general": int(variant == "general")}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,ci,co,h,w,offset,variant", [
+    (3, 7, 5, 5, 5, 7 * 5 * 5, "general"),        # x[1:] of 4 frames
+    (4, 16, 32, 16, 16, 1, "general"),            # 2 bytes past a boundary
+    (4, 16, 32, 16, 16, 16 * 16 * 16, "hopper")])  # x[1:], on a boundary
+def test_cuda_conv3x3_offset_views(cuda, n, ci, co, h, w, offset, variant):
+    """A contiguous x at an offset into its storage.  The Hopper variant's
+    TMA boxes need x on a 16-byte boundary, so any other start takes the
+    general variant, which reads x element by element; both match the
+    plain version."""
+    g = torch.Generator(device=cuda).manual_seed(offset)
+    base = torch.randn(offset + n * ci * h * w, device=cuda,
+                       generator=g).bfloat16()
+    x = base[offset:].view(n, ci, h, w)
+    wt = (torch.randn((co, ci, 3, 3), device=cuda, generator=g)
+          * (2.0 / (9 * (ci + co))) ** 0.5).bfloat16()
+    CV.reset_launch_counts()
+    got = CV.conv3x3_cuda(x, wt)
+    torch.cuda.synchronize()
+    s = torch.nn.functional.conv2d(x.float().abs(), wt.float().abs(),
+                                   padding=1)
+    assert _within_limit(got, conv3x3(x, wt), s)
+    assert CV.variant_launches == {"hopper": int(variant == "hopper"),
+                                   "general": int(variant == "general")}
 
 
 @pytest.mark.cuda
@@ -441,8 +474,11 @@ def test_cuda_conv3x3_launches_in_a_bf16_branch_pair_without_grad(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("m,k", [(300, 1152), (128, 576), (1000, 256)])
+@pytest.mark.parametrize("m,k", [(300, 1152), (128, 576), (1000, 256),
+                                 (1, 1152), (127, 256), (262144 + 64, 1152)])
 def test_cuda_mm_fwd_matches_plain(cuda, m, k):
+    """Below one 256-row tile (M = 1, 127), ragged last tiles, and the
+    prototype's M plus a partial tile."""
     g = torch.Generator(device=cuda).manual_seed(m + k)
     x = (torch.randn((m, k), device=cuda, generator=g) * 0.1).bfloat16()
     w = (torch.randn((k // 128, 128, 128), device=cuda, generator=g)

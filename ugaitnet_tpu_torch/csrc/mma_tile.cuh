@@ -1,7 +1,7 @@
-// The tensor-core tile code shared by conv3x3.cu and probes.cu: ldmatrix
-// loads of 8x8 bf16 matrices from shared memory and the mma.sync
-// m16n8k16 bf16 product with float32 accumulation (sm_80 and later; run
-// here on sm_90a).
+// The tensor-core tile code of conv3x3.cu's general variant
+// (conv3x3_general_kernel): ldmatrix loads of 8x8 bf16 matrices from
+// shared memory and the mma.sync m16n8k16 bf16 product with float32
+// accumulation (sm_80 and later; run here on sm_90a).
 //
 // Fragment layouts (PTX ISA, "Matrix Fragments for mma.m16n8k16"), for a
 // lane l with g = l / 4 and q = l % 4:
@@ -10,10 +10,9 @@
 //   B (16 x 8, col-major)   b[0] = (2q..2q+1, g)     b[1] = (2q+8..2q+9, g)
 //   C (16 x 8, float32)     c[0..1] = (g, 2q..2q+1)  c[2..3] = (g+8, 2q..2q+1)
 // A is loaded from a [row][k] buffer (k contiguous) with ldsm_x4, lane l
-// giving the address of row l % 16 at k + 8 (l / 16).  B is loaded either
-// from a [n][k] buffer with ldsm_x4 (b_rows_nk gives the lane's row) or
-// from a [k][n] buffer with ldsm_x4_trans (b_rows_kn); both give the
-// fragments of two neighbouring n8 tiles: r[0], r[1] the first's b[0],
+// giving the address of row l % 16 at k + 8 (l / 16).  B is loaded from a
+// [n][k] buffer with ldsm_x4 (b_rows_nk gives the lane's row), which gives
+// the fragments of two neighbouring n8 tiles: r[0], r[1] the first's b[0],
 // b[1], and r[2], r[3] the second's.
 #pragma once
 
@@ -30,15 +29,6 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
-                                              uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(addr));
 }
@@ -63,27 +53,15 @@ __device__ __forceinline__ int b_rows_nk(int lane) {
 }
 __device__ __forceinline__ int b_k_nk(int lane) { return ((lane >> 3) & 1) * 8; }
 
-// [k][n] B buffer, ldsm_x4_trans: the lane's k row (0..15) and n offset
-// (0 or 8)
-__device__ __forceinline__ int b_rows_kn(int lane) {
-  return (lane & 7) + (((lane >> 3) & 1) << 3);
-}
-__device__ __forceinline__ int b_n_kn(int lane) { return (lane >> 4) * 8; }
-
 // One k16 step of a warp's MT x NT tile: A fragments from a_addr[mt], B
 // fragment pairs from b_addr[j] (n tiles 2j and 2j + 1).
-template <int MT, int NT, bool kTransB>
+template <int MT, int NT>
 __device__ __forceinline__ void warp_k16(float (&acc)[MT][NT][4],
                                          const uint32_t (&a_addr)[MT],
                                          const uint32_t (&b_addr)[NT / 2]) {
   uint32_t b[NT / 2][4];
 #pragma unroll
-  for (int j = 0; j < NT / 2; ++j) {
-    if (kTransB)
-      ldsm_x4_trans(b[j], b_addr[j]);
-    else
-      ldsm_x4(b[j], b_addr[j]);
-  }
+  for (int j = 0; j < NT / 2; ++j) ldsm_x4(b[j], b_addr[j]);
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt) {
     uint32_t a[4];

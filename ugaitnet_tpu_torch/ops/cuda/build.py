@@ -1,10 +1,15 @@
 """Build a CUDA source of ``ugaitnet_tpu_torch/csrc`` into a shared library.
 
 Each source has a plain C interface and is compiled by ``nvcc`` for Hopper
-(``sm_90a``) at first use, then loaded with ``ctypes``.  The library goes to
-``build/kernels/`` beside the package (listed in ``.gitignore``) and is
-rebuilt when its source, or a header of ``csrc`` (``*.cuh``), is newer.
-Nothing is built at import time.
+(``sm_90a``: ``wgmma`` and ``setmaxnreg`` exist only there) at first use,
+then loaded with ``ctypes``.  The library goes to ``build/kernels/`` beside
+the package (listed in ``.gitignore``) and is rebuilt when its source, or a
+header of ``csrc`` (``*.cuh``), is newer.  Nothing is built at import time.
+
+The TMA kernels (``conv3x3.cu``, ``probes.cu``) encode their tensor maps
+with the driver-API function ``cuTensorMapEncodeTiled``, which they reach
+through the runtime's ``cudaGetDriverEntryPoint`` (``csrc/hopper.cuh``):
+the libraries link no ``-lcuda``, so NVCC_FLAGS names no driver library.
 """
 
 from __future__ import annotations

@@ -10,7 +10,8 @@ measure the ceilings the conv kernels are held against.
 - ``scale2`` replaces ``_copy_kernel``: x * 2 over a contiguous bf16
   tensor, the prototype's (T*32*32*32, B) batch-minor view.
 
-The kernels are in ``csrc/probes.cu`` (header note: design and bounds).
+The kernels are in ``csrc/probes.cu`` (header note: design and bounds);
+``mm_plan`` gives ``mm_fwd``'s persistent grid over 256-row tiles.
 For a CPU tensor each wrapper takes its plain version; for any other it
 launches its kernel or raises.  ``mm_launches`` / ``scale2_launches``
 count the launches of this process (``reset_launch_counts``).
@@ -19,6 +20,7 @@ count the launches of this process (``reset_launch_counts``).
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 
@@ -27,11 +29,28 @@ scale2_launches = 0
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
+MM_ROWS = 256           # rows a tile (csrc/probes.cu: mm::kBM)
+
 
 def reset_launch_counts() -> None:
     global mm_launches, scale2_launches
     mm_launches = 0
     scale2_launches = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class MMPlan:
+    """``grid`` persistent CTAs (one an SM at most) over ``tiles`` tiles of
+    MM_ROWS rows of x (the last one ragged where MM_ROWS does not divide
+    M); CTA c takes tiles c, c + grid, ..."""
+    m: int
+    tiles: int
+    grid: int
+
+
+def mm_plan(m: int, sms: int = 132) -> MMPlan:
+    tiles = -(-m // MM_ROWS)
+    return MMPlan(m=m, tiles=tiles, grid=min(sms, tiles))
 
 
 def mm_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -51,7 +70,7 @@ def _lib() -> ctypes.CDLL:
     from ugaitnet_tpu_torch.ops.cuda.build import load
     lib = load("probes")
     if not getattr(lib, "_typed", False):
-        lib.mm_fwd.argtypes = [_P, _P, _P, _LL, _I, _I, _P]
+        lib.mm_fwd.argtypes = [_P, _P, _P, _P, _LL, _I, _I, _I, _P]
         lib.mm_fwd.restype = _I
         lib.scale2.argtypes = [_P, _P, _LL, _P]
         lib.scale2.restype = _I
@@ -80,15 +99,20 @@ def _check_mm(x: torch.Tensor, w: torch.Tensor) -> None:
 
 
 def mm_fwd(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """(M, 128) bf16 from the kernel; the plain version on the CPU."""
+    """(M, 128) bf16 from the kernel (w packed K-major first, inside the
+    call); the plain version on the CPU."""
     global mm_launches
     if x.device.type == "cpu":
         return mm_plain(x, w)
     _check_mm(x, w)
     y = torch.empty((x.shape[0], 128), dtype=x.dtype, device=x.device)
+    wt = torch.empty(w.numel(), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
-        rc = _lib().mm_fwd(x.data_ptr(), w.data_ptr(), y.data_ptr(),
-                           x.shape[0], 128 * w.shape[0], x.shape[1],
+        p = mm_plan(x.shape[0], torch.cuda.get_device_properties(
+            x.device).multi_processor_count)
+        rc = _lib().mm_fwd(x.data_ptr(), w.data_ptr(), wt.data_ptr(),
+                           y.data_ptr(), x.shape[0], 128 * w.shape[0],
+                           x.shape[1], p.grid,
                            torch.cuda.current_stream(x.device).cuda_stream)
     _check(rc, "mm_fwd", x.device)
     mm_launches += 1
