@@ -58,8 +58,12 @@ channels (32, 64, 128), part_dim 256, 62 parts, sign_max merge, 74 classes):
      its factor to cuBLAS and the earlier kernel's time, quoted
      (EARLIER_MM_MS: that kernel is no longer built); scale2 bitwise
      against x * 2 on the prototype's (T*32*32*32, 128) view of a (128, 25,
-     32, 32, 32) bf16 tensor, timed with and without the transpose, against
-     the bytes bound;
+     32, 32, 32) bf16 tensor (the vec variant, as its counter must show),
+     at an unaligned offset of x and y, and with x and y at offsets apart
+     (the scalar variant); a planted fault must fail the check; timed in
+     turns with x * 2 and the scalar variant, with its share of the bound,
+     its factor to x * 2 and the earlier kernel's time, quoted
+     (EARLIER_SCALE2_MS), and with the transpose;
   2. embed: preprocess_batch on raw int16 OF / uint8 gray at B = 128, then
      the forward, in float32 and bfloat16 (inputs perturbed every batch);
      the bf16 forward launches the conv kernel exactly 4 times (a_conv2
@@ -406,6 +410,11 @@ COPY_PALLAS = "benchmarks/proto_mm.py:72"
 # 80GB HBM3, 700 W, CUDA events over 20 launches, PERF.md section 6),
 # quoted beside this run's in phase 1d's print lines and nowhere else
 EARLIER_MM_MS = {576: 0.4055, 1152: 0.8410, 2304: 1.6006}
+# the earlier scale2 kernel's time (a grid-stride loop over at most 8 CTAs
+# an SM, one 16-byte load in flight a thread; H100 80GB HBM3, 700 W, CUDA
+# events over 20 launches at the same shape, PERF.md section 6), quoted
+# beside this run's in phase 1d's print line and nowhere else
+EARLIER_SCALE2_MS = 0.1519
 # the cases of phase 1c that must take the Hopper variant
 HOPPER_CASES = ("a_conv6", "a_conv2", "a_conv6 TP half (Ci 64)",
                 "a_conv2 TP half (Ci 16)")
@@ -1217,11 +1226,107 @@ def conv_phase(card):
     return out
 
 
+def scale2_readings(card, gen, pairs=3):
+    """Phase 1d's scale2: bitwise against x * 2 on the prototype's (128,
+    25, 32, 32, 32) bf16 tensor and its batch-minor view (the vec variant,
+    as the counters must show), at an offset of 3 values on x and y (a
+    head and a tail), and with y 3 values off x's offset (the scalar
+    variant); a planted fault (the last 8 values left out of the launch,
+    in a NaN-filled y) must fail the check.  Times by CUDA events after a
+    discarded pass, in ``pairs`` pairs of turns (forward, then reversed):
+    the vec variant, x * 2, and the scalar variant at the prototype's n
+    with y one value off x's offset."""
+    from ugaitnet_tpu_torch.ops.cuda import probes as PR
+    dev = torch.device("cuda")
+    b, t = 128, 25
+    x = (torch.randn((b, t, 32, 32, 32), device=dev, generator=gen)
+         * 0.1).to(torch.bfloat16)
+    n = x.numel()
+
+    def transposed():
+        return x.permute(1, 2, 3, 4, 0).contiguous().view(t * 32 ** 3, b)
+
+    xt = transposed()
+    want = x * 2
+    plan = PR.scale2_plan(n, PR.offset16(x), 0)
+    before = dict(PR.scale2_variant_launches)
+    got = PR.scale2(x)
+    c = {"bitwise": bool(torch.equal(got, want)),
+         "max_abs_err": float((got.float() - want.float()).abs().max()),
+         "variant": plan.variant, "plan": dataclasses.asdict(plan)}
+    del got
+    c["took"] = [k for k, v in PR.scale2_variant_launches.items()
+                 if v == before[k] + 1]
+    c["bitwise_view"] = bool(torch.equal(PR.scale2(xt), PR.scale2_plain(xt)))
+    # x and y 3 values past a 16-byte boundary: a head of 5 values and a
+    # tail of 3; y at the boundary: the scalar variant
+    xf, wf = x.reshape(-1), want.reshape(-1)
+    buf = torch.empty(n + 8, dtype=x.dtype, device=dev)
+    before = dict(PR.scale2_variant_launches)
+    c["bitwise_offset"] = bool(torch.equal(PR.scale2(xf[3:], buf[3:n]),
+                                           wf[3:]))
+    c["bitwise_offsets_apart"] = bool(torch.equal(
+        PR.scale2(xf[3:], buf[:n - 3]), wf[3:]))
+    c["offset_variants"] = {k: v - before[k] for k, v in
+                            PR.scale2_variant_launches.items()}
+    # the planted fault: the launch stops 8 values short of the end
+    y = torch.full_like(xf, float("nan"))
+    PR.scale2(xf[:-8], y[:-8])
+    c["fault_bitwise"] = bool(torch.equal(y, wf))
+    c["fault_differ"] = int((y != wf).sum())
+    del y, want, wf
+    ys = buf[1:n + 1]
+    fns = {"vec": lambda: PR.scale2(x), "x * 2": lambda: x * 2,
+           "scalar": lambda: PR.scale2(xf, ys)}
+    for fn in fns.values():      # a timed pass, discarded: the first
+        cuda_ms(fn)              # timing of a run reads high
+    turns = {k: [] for k in fns}
+    for _ in range(pairs):
+        for order in (list(fns), list(fns)[::-1]):
+            for k in order:
+                turns[k].append(cuda_ms(fns[k]))
+    mean = {k: sum(v) / len(v) for k, v in turns.items()}
+    c.update(ms=mean["vec"], library_ms=mean["x * 2"],
+             scalar_ms=mean["scalar"], turns=turns,
+             with_transpose_ms=cuda_ms(lambda: PR.scale2(transposed())),
+             transpose_ms=cuda_ms(transposed),
+             plain_ms=cuda_ms(lambda: PR.scale2_plain(xt)))
+    c["bound_ms"], c["bound_by"] = bound(2 * n * 2, n)
+    c["share_of_bound"] = c["bound_ms"] / c["ms"]
+    c["factor_to_library"] = c["ms"] / c["library_ms"]
+    print(f"scale2 on (T*32*32*32, B) = {tuple(xt.shape)} bf16 "
+          f"[{c['variant']}: grid {plan.grid}; took {c['took']}]: bitwise "
+          f"to x * 2 {c['bitwise']} (view {c['bitwise_view']}; x and y 3 "
+          f"values off {c['bitwise_offset']}, y 3 values apart "
+          f"{c['bitwise_offsets_apart']}: variants {c['offset_variants']});"
+          f" planted fault (the last 8 values not launched): bitwise "
+          f"{c['fault_bitwise']}, {c['fault_differ']} values differ; kernel "
+          f"{c['ms']:.4f} ms, {c['share_of_bound']:.1%} of the bound, "
+          f"{c['factor_to_library']:.3f}x torch x * 2 "
+          f"{c['library_ms']:.4f} ms (the earlier kernel "
+          f"{EARLIER_SCALE2_MS:.4f}, quoted, not measured here); the scalar "
+          f"variant {c['scalar_ms']:.4f} ms; turns "
+          f"{ {k: [round(v, 4) for v in vs] for k, vs in turns.items()} }; "
+          f"with the transpose {c['with_transpose_ms']:.4f} ms (the "
+          f"transpose alone {c['transpose_ms']:.4f}); bound "
+          f"{c['bound_ms']:.4f} ms ({c['bound_by']}, {4 * n / 1e9:.4f} GB) "
+          f"[{card}]")
+    check(c["bitwise"] and c["bitwise_view"], "scale2 vs x * 2")
+    check(c["took"] == ["vec"],
+          f"scale2 at the prototype's shape took {c['took']}")
+    check(c["bitwise_offset"] and c["bitwise_offsets_apart"]
+          and c["offset_variants"] == {"vec": 1, "scalar": 1},
+          f"scale2 at an offset: {c}")
+    check(not c["fault_bitwise"] and c["fault_differ"] == 8,
+          "the planted scale2 fault passes")
+    del x, xt, xf, buf, ys
+    return c
+
+
 def probe_phase(card):
     """1d. mm_fwd against its plain version (ulp + CONV_SUM_REL * S) at
-    the prototype's M and K, timed beside cuBLAS; scale2 bitwise against
-    x * 2 on the prototype's batch-minor view, timed with and without the
-    transpose."""
+    the prototype's M and K, timed beside cuBLAS; scale2
+    (``scale2_readings``)."""
     from ugaitnet_tpu_torch.ops.cuda import probes as PR
     dev = torch.device("cuda")
     bf16 = torch.bfloat16
@@ -1271,34 +1376,10 @@ def probe_phase(card):
         check(r["cublas"]["of_limit"] <= 1.0, f"mm_fwd K={k}: cuBLAS vs "
               f"plain")
         del x, w, w2, got, want, s
-    b, t = 128, 25
-    x = (torch.randn((b, t, 32, 32, 32), device=dev, generator=gen)
-         * 0.1).to(bf16)
-
-    def transposed():
-        return x.permute(1, 2, 3, 4, 0).contiguous().view(t * 32 ** 3, b)
-
-    xt = transposed()
-    same = torch.equal(PR.scale2(xt), PR.scale2_plain(xt)) and torch.equal(
-        PR.scale2(x), x * 2)
-    c = {"bitwise": same,
-         "ms": cuda_ms(lambda: PR.scale2(x)),
-         "with_transpose_ms": cuda_ms(lambda: PR.scale2(transposed())),
-         "transpose_ms": cuda_ms(transposed),
-         "plain_ms": cuda_ms(lambda: PR.scale2_plain(xt)),
-         "library_ms": cuda_ms(lambda: x * 2)}
-    c["bound_ms"], c["bound_by"] = bound(2 * x.numel() * 2, x.numel())
-    out["copy"] = c
-    print(f"scale2 on (T*32*32*32, B) = {tuple(xt.shape)} bf16: bitwise to "
-          f"x * 2 {same}; kernel {c['ms']:.4f} ms without the transpose, "
-          f"{c['with_transpose_ms']:.4f} ms with it (the transpose alone "
-          f"{c['transpose_ms']:.4f} ms); torch x * 2 {c['library_ms']:.4f} "
-          f"ms; bound {c['bound_ms']:.4f} ms ({c['bound_by']}, "
-          f"{2 * x.numel() * 2 / 1e9:.4f} GB) [{card}]")
-    check(same, "scale2 vs x * 2")
+    out["copy"] = scale2_readings(card, gen)
     out["launches"] = {"mm_fwd": PR.mm_launches,
                        "scale2": PR.scale2_launches}
-    del x, xt
+    out["scale2_variant_launches"] = dict(PR.scale2_variant_launches)
     torch.cuda.empty_cache()
     out["phase_s"] = time.perf_counter() - t_phase
     print(f"phase 1d: {out['phase_s']:.1f} s")
@@ -1405,10 +1486,11 @@ def tail_ab_steps(cfgs, tcfg, batch, card, n=5, warm=2):
     return out
 
 
-def raw_batch(b, ids, seed):
+def raw_batch(b, ids, seed, dev="cuda"):
     """b raw clips on the card (int16 OF planes, uint8 gray planes), all
-    modalities present, labels ids x (b / ids), from a seeded generator."""
-    dev = torch.device("cuda")
+    modalities present, labels ids x (b / ids), from a seeded generator
+    (on ``dev``)."""
+    dev = torch.device(dev)
     g = torch.Generator(device=dev).manual_seed(seed)
     return {
         "raw_of": torch.randint(-3000, 3000, (b, 50, 60, 60), device=dev,
@@ -3543,7 +3625,12 @@ def joint_phase(card, work, casia_dir, gallery_dir, probe_dir, fit7_ms):
 # one-process step fed the ranks' gathered signatures (the triplet's
 # inputs bitwise the ranks'), and counts the triplets whose hinge changes
 # side: an H100 (700 W) reads 1 switched pick of 1,904,640, 1.68e-3
-# unforced and fed, 6.0e-5 forced, and no hinge that changes side.
+# unforced and fed, 6.0e-5 forced, and no hinge that changes side.  The
+# forced 6.0e-5 is not a fault of the step (tools/chip_p12_conv.py): the
+# branches' cuDNN convs round apart at 60 rows (1.6e-6 at b_conv3), max
+# and leaky ReLU switches carry that into the cotangents, and the forced
+# step with every branch run on the ranks' 60-row halves reads 2.4e-7
+# (ROADMAP section 3).
 # Every run also reads three planted faults against P12_GRAD_REL (the
 # gather without its autograd, own rows only; the local L2 inside the
 # global form; gradients summed, not averaged).
@@ -5350,9 +5437,14 @@ def main():
         "replaces": COPY_PALLAS,
         "launches": probe_res["launches"]["scale2"],
         "launches_by_path": {"probe_phase": probe_res["launches"]["scale2"]},
-        "max_abs_err": 0.0, "ms": cp["ms"], "plain_ms": cp["plain_ms"],
-        "bound_ms": cp["bound_ms"], "bound_by": cp["bound_by"],
-        "library_ms": cp["library_ms"],
+        "max_abs_err": cp["max_abs_err"], "ms": cp["ms"],
+        "plain_ms": cp["plain_ms"], "bound_ms": cp["bound_ms"],
+        "bound_by": cp["bound_by"], "library_ms": cp["library_ms"],
+        "share_of_bound": cp["share_of_bound"],
+        "factor_to_library": cp["factor_to_library"],
+        "variant": cp["variant"],
+        "variant_launches": probe_res["scale2_variant_launches"],
+        "scalar_ms": cp["scalar_ms"],
         "with_transpose_ms": cp["with_transpose_ms"]})
     print(json.dumps({"card": card, "embed_ms_per_batch": embed,
                       "train_step_ms": train_ms,

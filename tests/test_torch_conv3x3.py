@@ -20,7 +20,10 @@ the CPU.
   shared memory) and the schedule each persistent CTA walks, replayed in
   plain torch (the TMA boxes' addressing, zeros out of bounds): every
   output element written once, the result bitwise ``conv3x3`` /
-  ``mm_plain``.  The walks here mirror the kernels' (``csrc/conv3x3.cu``,
+  ``mm_plain``; ``scale2_plan`` likewise over n and x / y offsets (head,
+  body and tail of the vec variant, or the scalar variant's values),
+  bitwise ``scale2_plain``.  The walks here mirror the kernels'
+  (``csrc/conv3x3.cu``,
   ``csrc/probes.cu``), so the replay checks that the schedule covers the
   output; that the kernels walk it so, only the card tests
   (``test_torch_cuda.py``) check.
@@ -532,6 +535,105 @@ def test_mm_schedule_replay(m, k, sms):
             hits[r0:r0 + rows] += 1
     assert bool((hits == 1).all())
     assert torch.equal(y, PR.mm_plain(x, w))
+
+
+def _scale2_walk(p, cta):
+    """The [start, stop) value ranges CTA ``cta`` of ``p`` writes, as
+    ``csrc/probes.cu`` walks them.  vec: chunks [cta, cta + 1) SCALE2_SPAN
+    of the body, and in CTA 0 the head and the tail values; scalar: values
+    [cta, cta + 1) SCALE2_SPAN."""
+    span = PR.SCALE2_SPAN
+    if p.variant == "scalar":
+        yield cta * span, min((cta + 1) * span, p.n)
+        return
+    yield (p.head + 8 * cta * span,
+           p.head + 8 * min((cta + 1) * span, p.chunks))
+    if cta == 0:
+        t0 = p.head + 8 * p.chunks
+        yield 0, p.head
+        yield t0, t0 + p.tail
+
+
+def _replay_scale2(x, y):
+    """scale2 of x into y (both 1-D, y's values as they were where no CTA
+    writes) in plain torch, each range of each CTA's walk of the plan for
+    x's and y's offsets (``PR.offset16``).  Returns the plan and the
+    number of writes of each value."""
+    p = PR.scale2_plan(x.numel(), PR.offset16(x), PR.offset16(y))
+    hits = torch.zeros(x.numel(), dtype=torch.int32)
+    for cta in range(p.grid):
+        for a, b in _scale2_walk(p, cta):
+            y[a:b] = PR.scale2_plain(x[a:b])
+            hits[a:b] += 1
+    return p, hits
+
+
+SCALE2_CTA_VALUES = 8 * PR.SCALE2_SPAN        # values a vec CTA
+
+
+@pytest.mark.parametrize("n", [
+    1, 7, 8, 4097, SCALE2_CTA_VALUES - 1, 3 * SCALE2_CTA_VALUES + 1,
+    5 * SCALE2_CTA_VALUES + 13])
+@pytest.mark.parametrize("x_off", range(8))
+def test_scale2_plan_replay(n, x_off):
+    """For x at ``x_off`` values past a 16-byte boundary and y at each
+    offset 0-7: the vec variant exactly where the offsets agree and a
+    whole chunk follows the boundary, its body on a 16-byte boundary in
+    both, one CTA a SCALE2_SPAN of chunks; else the scalar variant.  Every
+    value written once (head, body and tail), and each replay bitwise
+    ``scale2_plain``."""
+    rng = np.random.RandomState(n + x_off)
+    src = torch.from_numpy(rng.randn(n + 8).astype(np.float32)).to(
+        torch.bfloat16)
+    buf = torch.empty(n + 8, dtype=torch.bfloat16)
+    base = PR.offset16(src)
+    x = src[(x_off - base) % 8:][:n]
+    assert PR.offset16(x) == x_off
+    for y_off in range(8):
+        y = buf[(y_off - PR.offset16(buf)) % 8:][:n].fill_(float("nan"))
+        p, hits = _replay_scale2(x, y)
+        vec = x_off == y_off and n >= (8 - x_off) % 8 + 8
+        assert p.variant == ("vec" if vec else "scalar")
+        if vec:
+            assert (x_off + p.head) % 8 == 0 and 0 <= p.tail < 8 and \
+                p.head + 8 * p.chunks + p.tail == n and p.chunks >= 1
+            assert p.grid == -(-p.chunks // PR.SCALE2_SPAN)
+        else:
+            assert p.grid == -(-n // PR.SCALE2_SPAN)
+        assert bool((hits == 1).all()), (n, x_off, y_off, p.variant)
+        assert torch.equal(y, PR.scale2_plain(x))
+
+
+def test_scale2_planted_fault_leaves_the_last_values():
+    """chip_smoke.py's planted fault: the launch over all but the last 8
+    values of x into a NaN-filled y leaves those 8 unwritten, so its
+    bitwise check must fail."""
+    n = 3 * SCALE2_CTA_VALUES + 3
+    x = torch.from_numpy(np.random.RandomState(1).randn(n).astype(
+        np.float32)).to(torch.bfloat16)
+    y = torch.full_like(x, float("nan"))
+    p, _ = _replay_scale2(x[:-8], y[:-8])
+    assert p.n == n - 8
+    assert int(torch.isnan(y.float()).sum()) == 8
+    assert not torch.equal(y, PR.scale2_plain(x))
+
+
+def test_scale2_plan_refusals_and_cpu_route():
+    """n = 0 is refused; a CPU tensor takes the plain version (into
+    ``out`` where given) with no launch; a tensor on neither the CPU nor
+    a card is refused."""
+    with pytest.raises(ValueError):
+        PR.scale2_plan(0)
+    x = torch.from_numpy(np.random.RandomState(2).randn(3, 37).astype(
+        np.float32)).to(torch.bfloat16)
+    PR.reset_launch_counts()
+    out = torch.empty_like(x)
+    assert PR.scale2(x, out) is out and torch.equal(out, x * 2)
+    assert torch.equal(PR.scale2(x), x * 2)
+    assert PR.scale2_launches == 0 and \
+        set(PR.scale2_variant_launches.values()) == {0}
+    with pytest.raises(ValueError):
+        PR.scale2(x.to("meta"))
 
 
 def test_op_fake_shapes_and_refusals():

@@ -500,8 +500,39 @@ def test_cuda_scale2_bitwise(cuda, shape):
     got = PR.scale2(x)
     assert torch.equal(got, x * 2)
     y = x.reshape(-1)[1:]                             # not 16-byte aligned
-    assert torch.equal(PR.scale2(y), y * 2)
+    assert torch.equal(PR.scale2(y), y * 2)           # y's out is: scalar
     assert PR.scale2_launches == 2
+    vec = int(x.numel() >= 8)                         # a whole 16-byte chunk
+    assert PR.scale2_variant_launches == {"vec": vec, "scalar": 2 - vec}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("off", range(1, 8))
+def test_cuda_scale2_offsets_and_variants(cuda, off):
+    """x ``off`` values past a 16-byte boundary, about 3 vec CTAs an SM:
+    with y at the same offset the vec variant (a head of 8 - off values,
+    a tail); with y one value further, and below one chunk past the
+    boundary, the scalar variant.  Each bitwise to x * 2, with exact
+    launches per variant; a launch over all but the last 8 values (the
+    planted fault of chip_smoke.py) leaves exactly those unwritten."""
+    n = 3 * 132 * 8 * PR.SCALE2_SPAN + 13 - off
+    g = torch.Generator(device=cuda).manual_seed(off)
+    src = torch.randn(n + 16, device=cuda, generator=g).bfloat16()
+    buf = torch.empty(n + 16, dtype=torch.bfloat16, device=cuda)
+    x, want = src[off:off + n], src[off:off + n] * 2
+    PR.reset_launch_counts()
+    assert torch.equal(PR.scale2(x, buf[off:off + n]), want)
+    assert torch.equal(PR.scale2(x, buf[off + 1:off + 1 + n]), want)
+    small = 7 - off
+    assert torch.equal(PR.scale2(x[:small + 1], buf[off:off + small + 1]),
+                       want[:small + 1])
+    assert PR.scale2_launches == 3
+    assert PR.scale2_variant_launches == {"vec": 1, "scalar": 2}
+    y = buf[off:off + n].fill_(float("nan"))
+    PR.scale2(x[:-8], y[:-8])
+    assert PR.scale2_variant_launches == {"vec": 2, "scalar": 2}
+    assert int((y != want).sum()) == 8
+    assert bool(torch.isnan(y[-8:].float()).all())
 
 
 # ---- kernels on a card that is not the current device -------------------

@@ -1,15 +1,18 @@
 """Build the conv and probe kernels and run ``chip_smoke.py``'s phases 1c
 (the 3x3 conv against its plain version and cuDNN) and 1d (``mm_fwd``
-against its plain version and cuBLAS, ``scale2``) alone on one CUDA card:
-the short command for work on ``csrc/conv3x3.cu`` and ``csrc/probes.cu``.
+against its plain version and cuBLAS, ``scale2`` against x * 2) alone on
+one CUDA card: the short command for work on ``csrc/conv3x3.cu`` and
+``csrc/probes.cu``.
 
-    python3 tools/chip_kernels.py
+    python3 tools/chip_kernels.py [--probes]
 
-Prints the card, the compiler's report per instantiation (registers,
-spills; a spill fails the run), each phase's readings and times, and their
-results as one JSON line; exits non-zero if a check fails.
+``--probes`` builds and runs the probes alone (phase 1d).  Prints the
+card, the compiler's report per instantiation (registers, spills; a spill
+fails the run), each phase's readings and times, and their results as one
+JSON line; exits non-zero if a check fails.
 """
 
+import argparse
 import json
 import os
 import subprocess
@@ -28,6 +31,9 @@ SOURCES = ("conv3x3", "probes")
 
 
 def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--probes", action="store_true")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("chip_kernels: no CUDA device")
     from ugaitnet_tpu_torch.ops.cuda import build
@@ -39,13 +45,15 @@ def main():
     print(f"card: {card}", flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    with ThreadPoolExecutor(len(SOURCES)) as pool:
-        list(pool.map(build.build, SOURCES))
-    print(f"build ({', '.join(SOURCES)}, in parallel): "
+    sources = ("probes",) if args.probes else SOURCES
+    with ThreadPoolExecutor(len(sources)) as pool:
+        list(pool.map(build.build, sources))
+    print(f"build ({', '.join(sources)}, in parallel): "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    rows = C.ptxas_report(build.BUILD_DIR, SOURCES)
-    res = {"card": card, "ptxas": rows, "conv3x3": C.conv_phase(card),
-           "probes": C.probe_phase(card)}
+    res = {"card": card, "ptxas": C.ptxas_report(build.BUILD_DIR, sources)}
+    if not args.probes:
+        res["conv3x3"] = C.conv_phase(card)
+    res["probes"] = C.probe_phase(card)
     print(json.dumps(res))
     print(f"total {time.perf_counter() - t0:.1f} s")
 

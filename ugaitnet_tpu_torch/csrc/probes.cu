@@ -49,15 +49,38 @@
 //   the L2 reads) was built and timed on an H100 SXM at 700 W: slower at
 //   every K, so it is not used.
 //
-//   scale2_kernel replaces _copy_kernel (benchmarks/proto_mm.py:72,
-//   pallas_call :85), the HBM copy probe: y = x * 2 over a contiguous bf16
-//   tensor (the prototype's (T*32*32*32, B) batch-minor view), rounded as
-//   torch rounds x * 2 (exactly: doubling a bf16 is exact, or inf).  Bytes
-//   bound it: one read and one write, 2 x 209.7 MB for the prototype's
-//   (128, 25, 32, 32, 32) tensor, 0.125 ms at 3.35 TB/s.  Each thread moves
-//   8 values (16 bytes) at a time, grid-stride; a tail or an unaligned
-//   pointer takes scalar loads.
+//   scale2 replaces _copy_kernel (benchmarks/proto_mm.py:72, pallas_call
+//   :85), the HBM copy probe: y = x * 2 over n contiguous bf16 values (the
+//   prototype's (T*32*32*32, B) batch-minor view of a (128, 25, 32, 32,
+//   32) tensor, n = 104,857,600), rounded as torch rounds x * 2 (exactly:
+//   doubling a bf16 is exact, or inf), so the result is bitwise x * 2.
 //
+//   Bound.  One read and one write of each value: 2 x 209.7 MB at the
+//   prototype's n, 0.1252 ms at 3.35 TB/s (H100 SXM, 700 W); 1 operation
+//   a value is nothing beside it.  So the kernel has to keep enough bytes
+//   in flight, in both directions, to hold HBM busy.
+//
+//   Design: scale2_plan (ops/cuda/probes.py) chooses the variant.
+//     - scale2_kernel<true> (the vec variant: x and y at the same offset
+//       from a 16-byte boundary, with a whole chunk after it): one 16-byte
+//       chunk a thread, 256 a CTA, one pass (no grid-stride loop, no
+//       persistent CTAs), each thread one ld.global.nc.L1::no_allocate
+//       load and one st.global.cs store.  The resident CTAs of all SMs so
+//       stream one window of the tensor, the access torch's own
+//       elementwise kernel makes.  The < 8 values before the first 16-byte
+//       boundary and after the last whole chunk go singly in CTA 0.  The
+//       earlier kernel, persistent CTAs (at most 8 an SM) in a grid-stride
+//       loop, was 7-10 % slower than torch's x * 2 on an H100; this one
+//       ties with it (PERF.md).
+//     - scale2_kernel<false> (the scalar variant: x and y at different
+//       offsets, which no 16-byte access serves both, or no whole chunk):
+//       one value a thread.
+//   A ring of cp.async.bulk loads and stores through shared memory (one
+//   producer thread, mbarriers, the stage released after wait_group.read)
+//   was built and timed on an H100 SXM at 700 W: over persistent CTAs it
+//   was 1.09x x * 2, and at one stage a CTA it tied with the vec variant,
+//   which needs no shared memory and no barrier; so it is not used.
+
 // Each launcher returns cudaGetLastError() (0 on success), or an error of
 // the tensor-map encoder (hopper.cuh).
 
@@ -71,7 +94,7 @@ namespace {
 
 using namespace hopper;
 
-constexpr int kCopyThreads = 256;   // scale2
+constexpr int kCopyThreads = 256;   // scale2: chunks (or values) a CTA
 
 namespace mm {
 constexpr int kThreads = 384;   // 2 consumer warpgroups + 1 producer
@@ -210,24 +233,50 @@ __device__ __forceinline__ __nv_bfloat16 twice(__nv_bfloat16 v) {
   return __float2bfloat16_rn(__bfloat162float(v) * 2.f);
 }
 
+__device__ __forceinline__ void twice8(uint4& v) {
+  __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&v);
+#pragma unroll
+  for (int k = 0; k < 8; ++k) e[k] = twice(e[k]);
+}
+
+__device__ __forceinline__ uint4 ld_stream(const uint4* p) {
+  uint4 v;
+  asm volatile("ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "l"(p));
+  return v;
+}
+
+__device__ __forceinline__ void st_stream(uint4* p, const uint4& v) {
+  asm volatile("st.global.cs.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"l"(p),
+               "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w)
+               : "memory");
+}
+
+// kVec: the values [head, head + 8 chunks) as 16-byte chunks (x + head and
+// y + head on a 16-byte boundary), one a thread, the head and tail values
+// in CTA 0; else one value a thread (head = chunks = 0).
 template <bool kVec>
 __global__ void __launch_bounds__(kCopyThreads)
     scale2_kernel(const __nv_bfloat16* __restrict__ x,
-                  __nv_bfloat16* __restrict__ y, long long n) {
-  const long long stride = (long long)gridDim.x * kCopyThreads;
-  long long i = blockIdx.x * (long long)kCopyThreads + threadIdx.x;
-  if (kVec) {
-    const long long nv = n / 8;
-    for (; i < nv; i += stride) {
-      uint4 v = reinterpret_cast<const uint4*>(x)[i];
-      __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&v);
-#pragma unroll
-      for (int k = 0; k < 8; ++k) e[k] = twice(e[k]);
-      reinterpret_cast<uint4*>(y)[i] = v;
-    }
-    i = nv * 8 + blockIdx.x * (long long)kCopyThreads + threadIdx.x;
+                  __nv_bfloat16* __restrict__ y, long long n, int head,
+                  long long chunks) {
+  const long long i = (long long)blockIdx.x * kCopyThreads + threadIdx.x;
+  if (!kVec) {
+    if (i < n) y[i] = twice(x[i]);
+    return;
   }
-  for (; i < n; i += stride) y[i] = twice(x[i]);
+  if (i < chunks) {
+    uint4 v = ld_stream(reinterpret_cast<const uint4*>(x + head) + i);
+    twice8(v);
+    st_stream(reinterpret_cast<uint4*>(y + head) + i, v);
+  }
+  if (blockIdx.x == 0) {
+    const long long t0 = head + 8 * chunks;
+    const int t = threadIdx.x;
+    if (t < head) y[t] = twice(x[t]);
+    if (t >= 32 && t - 32 < n - t0) y[t0 + t - 32] = twice(x[t0 + t - 32]);
+  }
 }
 
 bool aligned16(const void* p) {
@@ -293,24 +342,28 @@ int mm_fwd(const void* x, const void* w, void* wt, void* y, long long M,
   return cudaGetLastError();
 }
 
-// y = x * 2 over n contiguous bf16 values
-int scale2(const void* x, void* y, long long n, void* stream) {
-  if (n < 1) return cudaErrorInvalidValue;
-  int dev = 0, sms = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const bool vec = aligned16(x) && aligned16(y);
-  const long long items = vec ? n / 8 + 1 : n;
-  long long blocks = (items + kCopyThreads - 1) / kCopyThreads;
-  const long long cap = 8LL * (sms > 0 ? sms : 132);
-  if (blocks > cap) blocks = cap;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+// y = x * 2 over n contiguous bf16 values: vec with x + head and y + head
+// on a 16-byte boundary, 0 <= head < 8, head + 8 chunks <= n < head + 8
+// chunks + 8, else (scalar) head = chunks = 0; grid = ceil(chunks / 256)
+// CTAs (vec), else ceil(n / 256)
+int scale2(const void* x, void* y, long long n, int vec, int head,
+           long long chunks, int grid, void* stream) {
   const __nv_bfloat16* xt = static_cast<const __nv_bfloat16*>(x);
   __nv_bfloat16* yt = static_cast<__nv_bfloat16*>(y);
+  const long long tail = n - head - 8 * chunks;
+  const long long want = ((vec ? chunks : n) + kCopyThreads - 1) /
+                         kCopyThreads;
+  const bool body = vec ? head >= 0 && head <= 7 && chunks >= 1 &&
+                              tail >= 0 && tail <= 7 &&
+                              aligned16(xt + head) && aligned16(yt + head)
+                        : head == 0 && chunks == 0;
+  if (n < 1 || !body || grid != want) return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (vec)
-    scale2_kernel<true><<<(unsigned)blocks, kCopyThreads, 0, st>>>(xt, yt, n);
+    scale2_kernel<true><<<grid, kCopyThreads, 0, st>>>(xt, yt, n, head,
+                                                       chunks);
   else
-    scale2_kernel<false><<<(unsigned)blocks, kCopyThreads, 0, st>>>(xt, yt, n);
+    scale2_kernel<false><<<grid, kCopyThreads, 0, st>>>(xt, yt, n, 0, 0);
   return cudaGetLastError();
 }
 

@@ -11,31 +11,40 @@ measure the ceilings the conv kernels are held against.
   tensor, the prototype's (T*32*32*32, B) batch-minor view.
 
 The kernels are in ``csrc/probes.cu`` (header note: design and bounds);
-``mm_plan`` gives ``mm_fwd``'s persistent grid over 256-row tiles.
+``mm_plan`` gives ``mm_fwd``'s persistent grid over 256-row tiles,
+``scale2_plan`` ``scale2``'s variant and geometry: ``vec`` (16-byte
+streaming loads and stores, one pass a CTA) where x and y lie at the same
+offset from a 16-byte boundary, else ``scalar`` (single values).
 For a CPU tensor each wrapper takes its plain version; for any other it
 launches its kernel or raises.  ``mm_launches`` / ``scale2_launches``
-count the launches of this process (``reset_launch_counts``).
+count the launches of this process, ``scale2_variant_launches`` the
+latter by variant (``reset_launch_counts`` sets all to 0).
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+from typing import Optional
 
 import torch
 
 mm_launches = 0
 scale2_launches = 0
+scale2_variant_launches = {"vec": 0, "scalar": 0}
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
 MM_ROWS = 256           # rows a tile (csrc/probes.cu: mm::kBM)
+SCALE2_SPAN = 256       # 16-byte chunks (or values) a scale2 CTA
 
 
 def reset_launch_counts() -> None:
     global mm_launches, scale2_launches
     mm_launches = 0
     scale2_launches = 0
+    for k in scale2_variant_launches:
+        scale2_variant_launches[k] = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,6 +60,37 @@ class MMPlan:
 def mm_plan(m: int, sms: int = 132) -> MMPlan:
     tiles = -(-m // MM_ROWS)
     return MMPlan(m=m, tiles=tiles, grid=min(sms, tiles))
+
+
+@dataclasses.dataclass(frozen=True)
+class Scale2Plan:
+    """``scale2`` over n values.  vec: the values [head, head + 8 chunks)
+    as 16-byte chunks, the ``head`` values before them and the ``tail``
+    after (< 8 each) singly in CTA 0; CTA c takes chunks [c SCALE2_SPAN,
+    (c + 1) SCALE2_SPAN).  scalar: CTA c takes the values [c SCALE2_SPAN,
+    (c + 1) SCALE2_SPAN) singly (chunks = 0, tail = n)."""
+    n: int
+    variant: str
+    head: int
+    chunks: int
+    tail: int
+    grid: int
+
+
+def scale2_plan(n: int, x_off: int = 0, y_off: int = 0) -> Scale2Plan:
+    """The vec variant where x and y lie at the same offset from a 16-byte
+    boundary (``x_off``, ``y_off``: their addresses // 2 mod 8) and a
+    whole 16-byte chunk follows it; otherwise the scalar one."""
+    if n < 1:
+        raise ValueError(f"scale2: n = {n}")
+    head = (8 - x_off % 8) % 8
+    if x_off % 8 != y_off % 8 or n < head + 8:
+        return Scale2Plan(n=n, variant="scalar", head=0, chunks=0, tail=n,
+                          grid=-(-n // SCALE2_SPAN))
+    chunks = (n - head) // 8
+    return Scale2Plan(n=n, variant="vec", head=head, chunks=chunks,
+                      tail=n - head - 8 * chunks,
+                      grid=-(-chunks // SCALE2_SPAN))
 
 
 def mm_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -72,7 +112,7 @@ def _lib() -> ctypes.CDLL:
     if not getattr(lib, "_typed", False):
         lib.mm_fwd.argtypes = [_P, _P, _P, _P, _LL, _I, _I, _I, _P]
         lib.mm_fwd.restype = _I
-        lib.scale2.argtypes = [_P, _P, _LL, _P]
+        lib.scale2.argtypes = [_P, _P, _LL, _I, _I, _LL, _I, _P]
         lib.scale2.restype = _I
         lib._typed = True
     return lib
@@ -119,19 +159,39 @@ def mm_fwd(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return y
 
 
-def scale2(x: torch.Tensor) -> torch.Tensor:
-    """x * 2 from the kernel (bf16, contiguous); the plain version on the
-    CPU."""
+def offset16(t: torch.Tensor) -> int:
+    """t's first value's offset from a 16-byte boundary, in values."""
+    return t.data_ptr() // 2 % 8
+
+
+def scale2(x: torch.Tensor,
+           out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """x * 2 (bf16, contiguous) into ``out`` (a new tensor if None): on
+    the CPU the plain version; on a card one launch of the variant
+    ``scale2_plan`` gives for x's and out's offsets."""
     global scale2_launches
     if x.device.type == "cpu":
-        return scale2_plain(x)
+        y = scale2_plain(x)
+        return y if out is None else out.copy_(y)
+    if x.device.type != "cuda":
+        raise ValueError(f"the CUDA scale2 needs CUDA tensors; x is on "
+                         f"{x.device}")
     if x.dtype != torch.bfloat16 or not x.is_contiguous() or x.numel() < 1:
         raise ValueError(f"scale2 takes a non-empty contiguous bfloat16 "
                          f"tensor, got {x.dtype} {tuple(x.shape)}")
-    y = torch.empty_like(x)
+    if out is None:
+        out = torch.empty_like(x)
+    elif out.dtype != x.dtype or out.shape != x.shape or \
+            not out.is_contiguous() or out.device != x.device:
+        raise ValueError(f"scale2: out must be a contiguous bfloat16 "
+                         f"{tuple(x.shape)} on {x.device}")
+    plan = scale2_plan(x.numel(), offset16(x), offset16(out))
     with torch.cuda.device(x.device):
-        rc = _lib().scale2(x.data_ptr(), y.data_ptr(), x.numel(),
-                           torch.cuda.current_stream(x.device).cuda_stream)
-    _check(rc, "scale2", x.device)
+        rc = _lib().scale2(
+            x.data_ptr(), out.data_ptr(), plan.n, int(plan.variant == "vec"),
+            plan.head, plan.chunks, plan.grid,
+            torch.cuda.current_stream(x.device).cuda_stream)
+    _check(rc, f"scale2 ({plan.variant})", x.device)
     scale2_launches += 1
-    return y
+    scale2_variant_launches[plan.variant] += 1
+    return out
