@@ -238,6 +238,34 @@ channels (32, 64, 128), part_dim 256, 62 parts, sign_max merge, 74 classes):
      steps, traced after a third that warms the profiler up: the top 10
      kernels, the three triplet kernels once each and the two stage-tail
      kernels 4 times each per step, as the launch counters count them.
+ 14. convergence to Rank-1 (last, seed 0 as the JAX artifact, so its
+     datasets are the artifact's bitwise): the port's
+     ``eval/synthetic_rank1.py:run`` on the card at 64 identities (576
+     train and 576 eval clips, 192 probes), through ``Trainer.fit`` (P x K
+     sampler, expand_level 2, plateau lr, early stop, checkpoints), the
+     fp32 encode, and the camera-pair protocol with the pooled EER for the
+     full / of_only / gray_only probe sweeps.  (a) The tiny twin
+     (channels (8, 8, 16), part_dim 16, the JAX artifact's configuration,
+     whose numbers are printed beside it, not held): Rank-1 subseq and
+     video >= 0.9, EER finite and <= 0.25, the three sweeps, and a
+     single-modality sweep's Rank-1 more than 0.02 below the full one's or
+     its EER more than 0.02 above (``tests/test_convergence_rank1.py``'s
+     limits).  (b) The flagship at full width: the same Rank-1 and EER
+     limits (the sensitivity clause printed, not held), then its trained
+     weights re-encoded in bf16 without autograd (the conv kernel's path)
+     and held to the same limits, with the bf16 - fp32 difference of
+     every sweep.  Launch counts exact on each path (counts set to 0 at
+     the fit and at the encode): the triplet kernels once per train step
+     and validation batch (backward once per step), the stage tail 2 per
+     branch forward on the card and 4 per step backward, the conv kernel
+     0 in every fit and fp32 encode and 4 per bf16 forward, at the variant
+     ``plan`` chooses for a_conv2 and a_conv6; the kernels against their
+     plain versions on the path's own inputs (the first of each shape:
+     triplet values and gradient, stage tail bitwise and its gradient,
+     conv per element within its limit).  Prints the per-epoch train and
+     validation losses, the fit's ms per step, the train and encode
+     seconds and the phase's; writes each run's results under
+     ``chiprun_out/phase14/``.  Alone: ``python3 tools/chip_phase14.py``.
 
 Gradient limits scale with each case, and every run reads planted faults
 (a backward without the g^T term, with the negative role's sign flipped,
@@ -251,7 +279,8 @@ Stage-tail launches are counted on the main paths too: 2 per GaitSet branch
 forward on the card in phase 5's encode and phase 7's fit (4 per train
 step backward), 4 per identify_raw call in phase 6, 4 per encode of phase
 8's fp32 artifact in a fresh process, 4 + 4 per step over phase 13's two
-traced steps, in the counters and in the trace's own events.  The model's
+traced steps, in the counters and in the trace's own events, and in
+phase 14's fits and encodes.  The model's
 stage tails take the plain chain on the card only inside ``plain_tail()``
 (the comparison runs above).
 
@@ -4792,6 +4821,472 @@ def tp_pp_phase(card, work, experdir, gallery_dir, probe_dir, one_results):
     return out
 
 
+# ---- 14. convergence to Rank-1 ---------------------------------------------
+
+P14_IDS = 64                     # identities (chance 1 / 64), the artifact's
+P14_SEED = 0                     # the JAX artifact's seed: its data, bitwise
+# epochs of the tiny twin (the JAX script's) and of the full-width run
+P14_EPOCHS = {"tiny": 20, "full": 20}
+RANK1_MIN = 0.9                  # tests/test_convergence_rank1.py:33-34
+EER_MAX = 0.25                   # :36
+SENS_GAP = 0.02                  # :50-54, the sensitivity clause
+SYN_ARTIFACT = "benchmarks/results_synthetic_rank1.json"
+P14_RESULTS = os.path.join("chiprun_out", "phase14")
+P14_FITS = ("tiny_fit", "full_fit")
+
+
+@contextlib.contextmanager
+def path_counts(store):
+    """The launches of every hand kernel of the block, counts set to 0 at
+    its start, and the GaitSet branch forwards on the card: fills store
+    with triplet_fwd, triplet_bwd, tail_fwd, tail_bwd, conv3x3,
+    conv_variants and branch_forwards."""
+    from ugaitnet_tpu_torch.ops.cuda import conv3x3 as CV
+    from ugaitnet_tpu_torch.ops.cuda import triplet_kernel as K
+    K.reset_launch_counts()
+    CV.reset_launch_counts()
+    with tail_counts(store):
+        yield store
+    store.update(triplet_fwd=K.fwd_launches, triplet_bwd=K.bwd_launches,
+                 conv3x3=CV.launches, conv_variants=dict(CV.variant_launches))
+
+
+def keep_first(store, key):
+    """A wrapper factory that keeps a copy of the arguments of the first
+    call for each key(args) (the kernels' inputs on the main path, for
+    their comparison with the plain versions after it)."""
+    def make(fn):
+        def call(*a, **kw):
+            k = key(*a)
+            if k not in store:
+                store[k] = tuple(v.detach().clone() if isinstance(
+                    v, torch.Tensor) else v for v in a)
+            return fn(*a, **kw)
+        return call
+    return make
+
+
+def sweep_limits(res):
+    """The readings the phase holds a result to."""
+    sw = res["sweeps"]
+    return {"rank1_subseq": res["rank1_subseq"] >= RANK1_MIN,
+            "rank1_video": res["rank1_video"] >= RANK1_MIN,
+            "eer": bool(np.isfinite(res["eer"])) and res["eer"] <= EER_MAX,
+            "sweeps": set(sw) == {"full", "of_only", "gray_only"}}
+
+
+def sensitivity(sw):
+    """tests/test_convergence_rank1.py:50-54: a single-modality sweep
+    visibly below the full one."""
+    return (min(sw["of_only"]["rank1_subseq"], sw["gray_only"]["rank1_subseq"])
+            < sw["full"]["rank1_subseq"] - SENS_GAP
+            or max(sw["of_only"]["eer"], sw["gray_only"]["eer"])
+            > sw["full"]["eer"] + SENS_GAP)
+
+
+def fmt_sweeps(sw):
+    return "; ".join(f"{s} Rank-1 {v['rank1_subseq']:.4f} / video "
+                     f"{v['rank1_video']:.4f}, EER {v['eer']:.4f}"
+                     for s, v in sw.items())
+
+
+def triplet_vs_plain(x, lab):
+    """The triplet kernels against the plain version at a signature of the
+    path and its labels.  On the signature itself, at margin 0.2 and at
+    the batch's median distance: the value against the plain reduction
+    over the kernel's dist (rtol VAL_RTOL), counts and g exact, d^2 on the
+    scale of the norms (DIST_REL).  The gradient against the plain
+    autograd (GRAD_REL, with phase 1's planted faults) on a seeded normal
+    tensor of the same shape and labels, as phase 1 holds it: a trained
+    signature holds hinges within float32 rounding of 0, which the two
+    dists put on different sides."""
+    from ugaitnet_tpu_torch.ops.cuda import triplet_kernel as K
+    from ugaitnet_tpu_torch.ops.triplet import (batch_all_triplet_loss,
+                                                pairwise_dist)
+    x = x.detach().float().contiguous()
+    name = f"phase 14 triplet {tuple(x.shape)}"
+    med = float(pairwise_dist(x.transpose(0, 1)).median())
+    out = {"shape": list(x.shape), "median_margin": med}
+    for key, m in (("0.2", 0.2), ("median", med)):
+        kv = float(K.batch_all_triplet_loss_cuda(x, lab, m))
+        dist, _ = exact_checks(x, lab, m)
+        vo = value_over_dist(dist, lab, m)
+        out[key] = {"kernel": kv, "over_kernel_dist": vo,
+                    "plain": float(batch_all_triplet_loss(x, lab, m)),
+                    "sq_dist_err": sq_dist_err(dist, x),
+                    "value_rel": abs(kv - vo) / abs(vo) if vo else abs(kv)}
+        check(out[key]["value_rel"] <= VAL_RTOL, f"{name} m={m}: value")
+        check(out[key]["sq_dist_err"] <= DIST_REL, f"{name} m={m}: dist")
+    gen = torch.Generator(device=x.device).manual_seed(14)
+    r = torch.randn(x.shape, device=x.device, generator=gen)
+    xk = r.clone().requires_grad_(True)
+    K.batch_all_triplet_loss_cuda(xk, lab).backward()
+    xp = r.clone().requires_grad_(True)
+    batch_all_triplet_loss(xp, lab).backward()
+    out["grad_rel"] = rel_err(xk.grad, xp.grad)
+    out["grad_max_abs_err"] = float((xk.grad - xp.grad).abs().max())
+    out["grad_faults"] = fault_readings(r, lab, xp.grad)
+    check_faults(name, out["grad_rel"], out["grad_faults"])
+    return out
+
+
+def tail_vs_plain(x, batch, alpha, grad):
+    """The stage tail against the plain chain on an input of the path:
+    forward bitwise; where the path runs the backward, the gradient within
+    TAIL_GRAD_REL of max."""
+    from ugaitnet_tpu_torch.ops.cuda import stage_tail as ST
+    from ugaitnet_tpu_torch.ops.pooling import stage_tail
+    ak, sk = ST.launch_fwd(x, batch, alpha)
+    ap, sp = stage_tail(x, batch, alpha)
+    out = {"shape": list(x.shape), "dtype": str(x.dtype)[6:],
+           "bitwise": torch.equal(ak, ap) and torch.equal(sk, sp),
+           "max_abs_err": max(float((ak.float() - ap.float()).abs().max()),
+                              float((sk.float() - sp.float()).abs().max()))}
+    check(out["bitwise"], f"phase 14 stage tail {tuple(x.shape)} "
+                          f"{x.dtype}: forward")
+    if grad:
+        gen = torch.Generator(device=x.device).manual_seed(14)
+        g_a = torch.randn(ak.shape, device=x.device, generator=gen).to(
+            x.dtype)
+        g_s = torch.randn(sk.shape, device=x.device, generator=gen).to(
+            x.dtype)
+        want = tail_grad(x, batch, g_a, g_s, None).float()
+        got = tail_grad(x, batch, g_a, g_s).float()
+        out["grad_rel"] = rel_err(got, want)
+        out["grad_max_abs_err"] = float((got - want).abs().max())
+        check(out["grad_rel"] <= TAIL_GRAD_REL,
+              f"phase 14 stage tail {tuple(x.shape)}: gradient")
+    return out
+
+
+def conv_vs_plain(x, w):
+    """The conv kernel on an input of the path, per element within ulp +
+    CONV_SUM_REL * S of its plain version and of the float64 convolution
+    rounded once to bf16.  The plain version's float32 F.conv2d runs
+    without cuDNN (float32 GEMMs over im2col): on trained a_conv6 inputs
+    (values ~3e5) cuDNN's float32 algorithms have read 1.1-1.5 of the
+    limit from the kernel, whose reading from float64 stayed under 1
+    (PERF.md section 6, PR 14).  cuDNN's plain, deterministic off and on,
+    is read against float64 and the kernel, not held."""
+    import torch.nn.functional as F
+    from ugaitnet_tpu_torch.ops.conv3x3 import conv3x3
+    from ugaitnet_tpu_torch.ops.cuda import conv3x3 as CV
+    got = CV.conv3x3_cuda(x, w)
+    s = conv_abs(x, w)
+    exact = F.conv2d(x.double(), w.double(), padding=1).to(torch.bfloat16)
+    with torch.backends.cudnn.flags(enabled=False, allow_tf32=False):
+        plain = conv3x3(x, w)
+    r = ulp_readings(got, plain, s)
+    r["shape"] = list(x.shape) + [w.shape[0]]
+    r["vs_float64"] = ulp_readings(got, exact, s)["of_limit"]
+    r["plain_vs_float64"] = ulp_readings(plain, exact, s)["of_limit"]
+    for det in (False, True):
+        with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                        deterministic=det, allow_tf32=False):
+            cudnn = conv3x3(x, w)
+        key = "cudnn_deterministic" if det else "cudnn"
+        r[f"{key}_vs_float64"] = ulp_readings(cudnn, exact, s)["of_limit"]
+        r[f"kernel_vs_{key}"] = ulp_readings(got, cudnn, s)["of_limit"]
+    print(f"  conv {tuple(x.shape)} -> {w.shape[0]}, of the limit: kernel vs "
+          f"plain {r['of_limit']:.3f}, vs float64 {r['vs_float64']:.3f}; "
+          f"plain vs float64 {r['plain_vs_float64']:.3f}; cuDNN's plain "
+          f"(deterministic off / on) vs float64 "
+          f"{r['cudnn_vs_float64']:.3f} / "
+          f"{r['cudnn_deterministic_vs_float64']:.3f}, vs the kernel "
+          f"{r['kernel_vs_cudnn']:.3f} / "
+          f"{r['kernel_vs_cudnn_deterministic']:.3f}")
+    check(r["of_limit"] <= 1.0 and r["vs_float64"] <= 1.0,
+          f"phase 14 conv {tuple(x.shape)}: {r['of_limit']:.3f} of the "
+          f"limit from the plain version, {r['vs_float64']:.3f} from "
+          f"float64")
+    return r
+
+
+def convergence_phase(card, work, device="cuda"):
+    """14. The port's convergence run (``eval/synthetic_rank1.py:run``) on
+    the card at 64 identities, in the directory ``work`` (which the caller
+    removes): the tiny twin (the JAX artifact's configuration) and the
+    flagship at full width, each through ``Trainer.fit``, the fp32 encode
+    and the three probe sweeps; then the full-width weights re-encoded in
+    bf16 without autograd (the conv kernel's path).  Exact launch counts
+    on each path, the kernels against their plain versions on the path's
+    own inputs, the Rank-1 and EER limits, the results under
+    ``chiprun_out/phase14/``."""
+    from ugaitnet_tpu_torch.data.sampler import split_train_val_by_video
+    from ugaitnet_tpu_torch.eval import synthetic_rank1 as SR
+    from ugaitnet_tpu_torch.models import gaitset as GS
+    from ugaitnet_tpu_torch.models.network import UGaitNet
+    from ugaitnet_tpu_torch.obsv.logger import MetricsLogger
+    from ugaitnet_tpu_torch.ops.cuda import conv3x3 as CV
+    from ugaitnet_tpu_torch.ops.cuda import triplet_kernel as K
+    from ugaitnet_tpu_torch.train import trainer as TR
+    t_phase = time.perf_counter()
+    # a user's settings (phases 12 and 13 leave deterministic cuDNN on)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = False
+    torch.backends.cudnn.benchmark = False
+    dev = torch.device(device)
+    res_dir = os.path.join(REPO, P14_RESULTS)
+    os.makedirs(res_dir, exist_ok=True)
+    with open(os.path.join(REPO, SYN_ARTIFACT)) as f:
+        artifact = json.load(f)
+
+    # the datasets, made once for both runs (a pure function of the
+    # identities and the seed; ~13 s on the host), and the step counts the
+    # launches follow from
+    data = SR.datasets(P14_IDS, P14_SEED)
+    train_ds, eval_ds = data
+    _, dcfg, _, ecfg = SR.recipe(P14_IDS, 1)
+    tr_idx, val_idx = split_train_val_by_video(train_ds.video_ids, perc=0.15,
+                                               seed=P14_SEED)
+    steps = len(tr_idx) // dcfg.batch_size
+    val_batches = -(-len(val_idx) // min(len(val_idx), dcfg.batch_size))
+    val_encode = -(-len(val_idx) // max(dcfg.batch_size, 32))
+    sweep_batches = len(SR.SWEEPS) * -(-len(eval_ds.labels) // ecfg.batch_size)
+    n_train = len(train_ds.labels)
+    out = {"num_subjects": P14_IDS, "seed": P14_SEED,
+           "steps_per_epoch": steps, "val_clips": len(val_idx),
+           "val_batches": val_batches, "val_encode_batches": val_encode,
+           "encode_batches": sweep_batches, "epochs": dict(P14_EPOCHS),
+           "runs": {}, "kernels_vs_plain": {}}
+    print(f"phase 14 data: {P14_IDS} identities, {n_train} "
+          f"train and {len(eval_ds.labels)} eval clips; {len(tr_idx)} train / "
+          f"{len(val_idx)} val clips, {steps} steps of {dcfg.batch_size} x "
+          f"expand {dcfg.expand_level} rows, {val_batches} val batches, "
+          f"{val_encode} val encode batches; {sweep_batches} encode batches "
+          f"over the {len(SR.SWEEPS)} sweeps")
+    kept_trip, kept_tail, kept_conv = {}, {}, {}
+    launches = {}
+
+    def one(name, full_width):
+        epochs = P14_EPOCHS[name]
+        experdir = os.path.join(work, name)
+        got, counts = {}, {"fit": {}, "encode": {}}
+        epoch_s, val_s, validate_s, export_s, lens = [], [], [], [], []
+
+        def counted_fit(fit):
+            def call(self, ds, **kw):
+                with path_counts(counts["fit"]):
+                    got["state"] = fit(self, ds, **kw)
+                return got["state"]
+            return call
+
+        def counted_score(score):
+            def call(*a, **kw):
+                with path_counts(counts["encode"]):
+                    return score(*a, **kw)
+            return call
+
+        def timed_epoch(run_epoch):
+            def call(self, state, pipe, sampler, epoch, seed):
+                lens.append(len(sampler))
+                t0 = time.perf_counter()
+                res = run_epoch(self, state, pipe, sampler, epoch, seed)
+                epoch_s.append(time.perf_counter() - t0)
+                return res
+            return call
+
+        def made_once(datasets):
+            def call(num_subjects, seed):
+                check((num_subjects, seed) == (P14_IDS, P14_SEED),
+                      f"phase 14 datasets {num_subjects}, {seed}")
+                return data
+            return call
+
+        trip_key = lambda x, lab, *a: (name, tuple(x.shape), x.requires_grad)
+        tail_key = lambda x, *a: (name, tuple(x.shape), x.dtype,
+                                  torch.is_grad_enabled() and x.requires_grad)
+        t0 = time.perf_counter()
+        with wrapped(TR.Trainer, "fit", counted_fit), \
+                wrapped(SR, "score", counted_score), \
+                wrapped(SR, "datasets", made_once), \
+                wrapped(TR.Trainer, "_epoch", timed_epoch), \
+                wrapped(TR.Trainer, "_val_metrics", timed_calls(val_s)), \
+                wrapped(TR.Trainer, "_validate", timed_calls(validate_s)), \
+                wrapped(MetricsLogger, "export_embeddings",
+                        timed_calls(export_s)), \
+                wrapped(K, "batch_all_triplet_loss_cuda",
+                        keep_first(kept_trip, trip_key)), \
+                wrapped(GS, "stage_tail_cuda",
+                        keep_first(kept_tail, tail_key)):
+            res = SR.run(experdir, num_subjects=P14_IDS, epochs=epochs,
+                         seed=P14_SEED, device=dev, full_width=full_width)
+        wall = time.perf_counter() - t0
+        state = got.pop("state")
+        recs = {k: epoch_losses(experdir, k) for k in
+                ("train/loss", "train/acc", "val/loss", "val/eer")}
+        ran, nval = len(epoch_s), len(val_s)
+        with open(os.path.join(experdir, "controller.json")) as f:
+            stopped = json.load(f)["early_stopped"]
+        check(lens == [steps] * ran, f"phase 14 {name}: sampler lengths "
+                                     f"{lens}, expected {steps}")
+        check(sorted(recs["train/loss"]) == list(range(1, ran + 1))
+              and len(recs["val/loss"]) == nval == len(validate_s)
+              and (ran == epochs or (ran < epochs and stopped)),
+              f"phase 14 {name}: {ran} epochs of {epochs} (early stop "
+              f"{stopped}), {nval} validations, records {recs}")
+        check(all(np.isfinite(v) for k in ("train/loss", "val/loss")
+                  for v in recs[k].values()), f"phase 14 {name}: losses")
+        # launches: the triplet once per train step and validation batch
+        # (backward once per step); the stage tail 2 per GaitSet branch
+        # forward on the card (train steps, validation batches, the
+        # trainer's validation encode; 2 branches each), 4 per step
+        # backward; no conv kernel in fp32
+        fwd = ran * steps + nval * (val_batches + val_encode)
+        want_fit = {"triplet_fwd": ran * steps + nval * val_batches,
+                    "triplet_bwd": ran * steps, "tail_fwd": 4 * fwd,
+                    "tail_bwd": 4 * ran * steps, "conv3x3": 0,
+                    "branch_forwards": 2 * fwd}
+        want_enc = {"triplet_fwd": 0, "triplet_bwd": 0,
+                    "tail_fwd": 4 * sweep_batches, "tail_bwd": 0,
+                    "conv3x3": 0, "branch_forwards": 2 * sweep_batches}
+        for path, want in (("fit", want_fit), ("encode", want_enc)):
+            have = {k: counts[path][k] for k in want}
+            check(have == want, f"phase 14 {name} {path} launches {have}, "
+                                f"expected {want}")
+        launches[f"{name}_fit"] = counts["fit"]
+        launches[f"{name}_encode"] = counts["encode"]
+        fit_ms = [1e3 * t / steps for t in epoch_s]
+        r = {"result": res, "wall_s": wall, "epochs_run": ran,
+             "early_stopped": stopped, "validations": nval,
+             "losses": recs, "epoch_s": epoch_s, "fit_ms_per_step": fit_ms,
+             "fit_ms_per_step_steady": float(np.mean(fit_ms[1:] or fit_ms)),
+             "val_metrics_s": val_s, "validate_s": validate_s,
+             "export_embeddings_s": export_s, "launches": counts,
+             "limits": sweep_limits(res),
+             "sensitivity": sensitivity(res["sweeps"])}
+        print(f"phase 14 {name} ({'full width' if full_width else 'tiny'}, "
+              f"{epochs} epochs): {ran} epochs run (early stop {stopped}), "
+              f"fit {res['train_seconds']} s, encode + score "
+              f"{res['encode_eval_seconds']} s, run {wall:.1f} s [{card}]")
+        print(f"  train/loss by epoch {recs['train/loss']}")
+        print(f"  train/acc by epoch {recs['train/acc']}")
+        print(f"  val/loss {recs['val/loss']}, val/eer {recs['val/eer']}")
+        val_total = [round(a + b, 3) for a, b in zip(val_s, validate_s)]
+        print(f"  fit ms per step (epochs 2-{ran}) "
+              f"{r['fit_ms_per_step_steady']:.2f} (epoch 1 "
+              f"{fit_ms[0]:.2f}); validation s {val_total} (sprite export "
+              f"{[round(e, 3) for e in export_s]})")
+        print(f"  launches fit {counts['fit']}, encode {counts['encode']}")
+        print(f"  {fmt_sweeps(res['sweeps'])}; sensitivity clause "
+              f"{'holds' if r['sensitivity'] else 'does not hold'}")
+        return r, state
+
+    # (a) the tiny twin: the JAX artifact's configuration
+    tiny, state = one("tiny", False)
+    del state
+    gc.collect()
+    print(f"  the JAX package's CPU artifact ({SYN_ARTIFACT}, its own init "
+          f"and dropout streams; beside it, not a check): "
+          f"{fmt_sweeps(artifact['sweeps'])}")
+    out["runs"]["tiny"] = tiny
+    check(all(tiny["limits"].values()), f"phase 14 tiny: {tiny['limits']}")
+    check(tiny["sensitivity"], "phase 14 tiny: no single-modality sweep "
+                               "below the full one")
+    torch.cuda.empty_cache()
+
+    # (b) the flagship at full width, then its weights re-encoded in bf16
+    full, state = one("full", True)
+    out["runs"]["full"] = full
+    check(all(full["limits"].values()), f"phase 14 full: {full['limits']}")
+    mcfg = SR.recipe(P14_IDS, P14_EPOCHS["full"], True)[0]
+    bf = UGaitNet(dataclasses.replace(mcfg, compute_dtype="bfloat16"),
+                  device=dev)
+    bf.load_state_dict(state.model.state_dict())
+    del state
+    gc.collect()
+    conv_key = lambda x, w: (tuple(x.shape), tuple(w.shape))
+    bf_counts = {}
+    t0 = time.perf_counter()
+    with path_counts(bf_counts), \
+            wrapped(GS, "conv3x3_cuda", keep_first(kept_conv, conv_key)), \
+            wrapped(GS, "stage_tail_cuda", keep_first(kept_tail, lambda x, *a:
+                                                      ("bf16", tuple(x.shape),
+                                                       x.dtype, False))):
+        bf_sweeps, _ = SR.score(bf, eval_ds, ecfg, dev)
+    bf_s = time.perf_counter() - t0
+    del bf
+    launches["bf16_encode"] = bf_counts
+    # 4 conv launches per two-branch forward (a_conv2 and a_conv6 of each),
+    # each at the variant plan chooses for its shape
+    c1, _, c3 = mcfg.branches[0].gaitset_channels
+    n = ecfg.batch_size * 25
+    plans = {"a_conv2": CV.plan(n, c1, c1, 64, 64).variant,
+             "a_conv6": CV.plan(n, c3, c3, 16, 16).variant}
+    want_var = {k: 0 for k in CV.variant_launches}
+    for v in plans.values():
+        want_var[v] += 2 * sweep_batches
+    want_bf = {"triplet_fwd": 0, "triplet_bwd": 0,
+               "tail_fwd": 4 * sweep_batches, "tail_bwd": 0,
+               "conv3x3": 4 * sweep_batches, "conv_variants": want_var,
+               "branch_forwards": 2 * sweep_batches}
+    have = {k: bf_counts[k] for k in want_bf}
+    check(have == want_bf, f"phase 14 bf16 encode launches {have}, "
+                           f"expected {want_bf}")
+    bf_res = dict(full["result"], sweeps=bf_sweeps,
+                  rank1_subseq=bf_sweeps["full"]["rank1_subseq"],
+                  rank1_video=bf_sweeps["full"]["rank1_video"],
+                  eer=bf_sweeps["full"]["eer"], encode_eval_seconds=bf_s)
+    diff = {s: {k: bf_sweeps[s][k] - full["result"]["sweeps"][s][k]
+                for k in ("rank1_subseq", "rank1_video", "eer")}
+            for s in bf_sweeps}
+    out["bf16"] = {"result": bf_res, "conv_variant_by_layer": plans,
+                   "launches": bf_counts, "minus_fp32": diff,
+                   "limits": sweep_limits(bf_res),
+                   "sensitivity": sensitivity(bf_sweeps), "seconds": bf_s}
+    print(f"phase 14 bf16 re-encode of the full-width weights (no autograd):"
+          f" {fmt_sweeps(bf_sweeps)}; {bf_s:.1f} s; launches {bf_counts}; "
+          f"conv variants by layer {plans} [{card}]")
+    print("  bf16 - fp32: " + "; ".join(
+        f"{s} Rank-1 {d['rank1_subseq']:+.4f} / video "
+        f"{d['rank1_video']:+.4f}, EER {d['eer']:+.4f}"
+        for s, d in diff.items()))
+    print(f"  full width sensitivity clause (printed, not held): fp32 "
+          f"{'holds' if full['sensitivity'] else 'does not hold'}, bf16 "
+          f"{'holds' if out['bf16']['sensitivity'] else 'does not hold'}")
+    check(all(out["bf16"]["limits"].values()),
+          f"phase 14 bf16: {out['bf16']['limits']}")
+    out["launches"] = launches
+
+    # the kernels against their plain versions on the path's own inputs
+    # (these launches are not counted)
+    kvp = out["kernels_vs_plain"]
+    for (run, shape, train), (x, lab, *_) in sorted(kept_trip.items(),
+                                                    key=str):
+        kvp[f"triplet {run} {'train' if train else 'val'} {shape}"] = \
+            triplet_vs_plain(x, lab)
+    for (run, shape, dtype, grad), (x, b, alpha) in sorted(kept_tail.items(),
+                                                           key=str):
+        kvp[f"stage tail {run} {shape} {str(dtype)[6:]}"
+            f"{' with backward' if grad else ''}"] = tail_vs_plain(
+            x, b, alpha, grad)
+    for shape, (x, w) in sorted(kept_conv.items()):
+        kvp[f"conv {shape[0]} -> {shape[1][0]}"] = conv_vs_plain(x, w)
+    # each run's train step (triplet, stage tail with its backward) and
+    # the bf16 encode's two conv shapes
+    check(len(kept_conv) == 2 and all(
+        any(k[0] == run and k[2] for k in kept_trip)
+        and sum(k[0] == run and k[3] for k in kept_tail) == 2
+        for run in ("tiny", "full")), f"phase 14 kernel inputs: {list(kvp)}")
+    kept_trip.clear(), kept_tail.clear(), kept_conv.clear()
+    for k, v in kvp.items():
+        print(f"  kernel vs plain, {k}: " + ", ".join(
+            f"{f} {v[f]:.3g}" if isinstance(v[f], float) else f"{f} {v[f]}"
+            for f in v if f in ("grad_rel", "max_abs_err", "of_limit",
+                                "bitwise", "median_margin", "vs_float64")))
+    for name, r in out["runs"].items():
+        with open(os.path.join(res_dir, f"{name}.json"), "w") as f:
+            json.dump(r, f, indent=1, default=str)
+    with open(os.path.join(res_dir, "bf16.json"), "w") as f:
+        json.dump(out["bf16"], f, indent=1, default=str)
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"phase 14: {out['phase_s']:.1f} s; results in {P14_RESULTS}/ "
+          f"[{card}]")
+    return out
+
+
 def _demangle(names):
     """``name<template args>`` of each mangled kernel symbol, by the
     toolkit's ``cu++filt`` (beside nvcc), without its namespace, return
@@ -5318,6 +5813,14 @@ def main():
                              trainer_res["experdir"], gallery_dir, probe_dir,
                              one_eval)
         tp_launches = tp_res["launches"]
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # ---- 14. convergence to Rank-1: the tiny twin and the flagship
+        # trained on synthetic identities, scored through the open-world
+        # protocol (last, with its own seeds)
+        p14 = convergence_phase(card, os.path.join(sets, "convergence"))
+        p14_launches = p14["launches"]
     finally:
         shutil.rmtree(sets, ignore_errors=True)
 
@@ -5338,7 +5841,10 @@ def main():
                                   parallel_launches["triplet_fwd"],
                               "tp_rank_step":
                                   tp_launches["tp_rank_step"][0],
-                              "pp_step": tp_launches["pp_step"][0]},
+                              "pp_step": tp_launches["pp_step"][0],
+                              "convergence_phase": {
+                                  p: p14_launches[p]["triplet_fwd"]
+                                  for p in P14_FITS}},
          "max_abs_err": fwd_err, "ms": flag_t["fwd_ms"],
          "plain_ms": flag_t["plain_fwd_ms"],
          "bound_ms": flag_t["fwd_bound"][0],
@@ -5357,7 +5863,10 @@ def main():
                                   parallel_launches["triplet_bwd"],
                               "tp_rank_step":
                                   tp_launches["tp_rank_step"][1],
-                              "pp_step": tp_launches["pp_step"][1]},
+                              "pp_step": tp_launches["pp_step"][1],
+                              "convergence_phase": {
+                                  p: p14_launches[p]["triplet_bwd"]
+                                  for p in P14_FITS}},
          "max_abs_err": bwd_err, "ms": flag_t["bwd_ms"],
          "plain_ms": flag_t["plain_bwd_ms"],
          "bound_ms": flag_t["bwd_bound"][0],
@@ -5380,7 +5889,9 @@ def main():
                 "fit": fit_tail[f"tail_{d}"],
                 "encode": encode_tail[f"tail_{d}"],
                 "identify_raw": serve_tail[f"tail_{d}"],
-                "artifact_encode": art_tail[0 if d == "fwd" else 1]},
+                "artifact_encode": art_tail[0 if d == "fwd" else 1],
+                "convergence_phase": {p: v[f"tail_{d}"]
+                                      for p, v in p14_launches.items()}},
             "max_abs_err": tail_res["max_abs_err"][f"tail_{d}"],
             "ms": s1[f"{d}_ms"], "plain_ms": s1[f"plain_{d}_ms"],
             "bound_ms": s1[f"{d}_bound"][0], "bound_by": s1[f"{d}_bound"][1],
@@ -5405,7 +5916,9 @@ def main():
             "train_step": launches["conv3x3"],
             "train_step_bf16": bf_conv,
             "identify_raw_bf16": serve_res["bf16_conv_route"]["launches"],
-            "identify_raw_calls": serve_res["bf16_conv_route"]["calls"]},
+            "identify_raw_calls": serve_res["bf16_conv_route"]["calls"],
+            "convergence_phase": {p: v["conv3x3"]
+                                  for p, v in p14_launches.items()}},
         "max_abs_err": conv_res["max_abs_err"], "ms": c6["ms"],
         "plain_ms": c6["plain_ms"], "bound_ms": c6["bound_ms"],
         "bound_by": c6["bound_by"], "library_ms": c6["library_ms"],
@@ -5464,7 +5977,8 @@ def main():
                       "trainer": trainer_res, "int8": int8_res,
                       "branches": branch_res, "surface": surface_res,
                       "joint": joint_res, "parallel": parallel_res,
-                      "tp_pp": tp_res, "stage_tail": tail_res,
+                      "tp_pp": tp_res, "convergence": p14,
+                      "stage_tail": tail_res,
                       "conv3x3": conv_res, "probes": probe_res,
                       "embed_bf16_route": embed_route,
                       "train_tail_step": tail_step,

@@ -150,6 +150,18 @@ def test_load_keras_weights_matches_jax(tmp_path, kind, nmods):
     assert_same_tree(state_dict_to_flax(model.state_dict()), got)
 
 
+def test_load_gaitset_2mod_weights_alias_matches_jax(tmp_path):
+    """The flagship alias fills the tree as the JAX package's alias does,
+    and as load_gaitset_weights does."""
+    h5, jcfg = _h5_for(tmp_path, "gaitset", 2)
+    target = _port_tree(jcfg)
+    got = keras_import.load_gaitset_2mod_weights(h5, target)
+    want = j_import.load_gaitset_2mod_weights(
+        h5, jax.tree_util.tree_map(jax.numpy.asarray, target))
+    assert_same_tree(got, want)
+    assert_same_tree(got, keras_import.load_gaitset_weights(h5, target))
+
+
 def test_conv2d_dense_rows_follow_the_reference_flatten(tmp_path):
     """The first Dense's rows come in the reference's channels-first
     (c, h, w) order and land in the port's (h, w, c) order."""

@@ -76,6 +76,18 @@ def test_library_builds_into_build_dir():
                 if f.endswith(".so")]
 
 
+def test_native_available_matches_jax(monkeypatch):
+    """native_available against the JAX package's: True with the library
+    built, False where get_lib finds none."""
+    from ugaitnet_tpu.data import native as j_native
+    assert native.native_available() is True
+    assert native.native_available() == j_native.native_available()
+    monkeypatch.setattr(native, "get_lib", lambda: None)
+    monkeypatch.setattr(j_native, "get_lib", lambda: None)
+    assert native.native_available() is False
+    assert native.native_available() == j_native.native_available()
+
+
 def test_host_batch_gathers_every_modality(tmp_path, path):
     ds = make_synthetic_dataset(num_subjects=2, videos_per_subject=2,
                                 subseqs_per_video=2, seed=3)

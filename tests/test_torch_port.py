@@ -164,6 +164,27 @@ def test_preprocess_helpers_bitwise():
         assert np.array_equal(got.numpy(), np.asarray(want))
 
 
+@pytest.mark.parametrize("modality,kw", [
+    ("of", dict()),
+    ("of", dict(ntype=1, compress_factor=37.0)),
+    ("of", dict(clip_max=2300.0, clip_min=50.0)),
+    ("gray", dict()),
+    ("silhouette", dict()),
+    ("depth", dict())])
+def test_normalize_volume_bitwise(modality, kw):
+    """ops/preprocess.py:normalize_volume against the JAX function as XLA
+    compiles it: int16 OF planes, uint8 gray, silhouette and depth planes."""
+    rng = np.random.RandomState(6)
+    if modality == "of":
+        raw = rng.randint(-3000, 3000, (2, 50, 6, 6)).astype(np.int16)
+    else:
+        raw = rng.randint(0, 256, (2, 25, 6, 6)).astype(np.uint8)
+    want = jax.jit(lambda r: JP.normalize_volume(r, modality, **kw))(raw)
+    got = TP.normalize_volume(torch.from_numpy(raw), modality, **kw)
+    assert got.dtype == torch.float32 and tuple(got.shape) == want.shape
+    assert np.array_equal(got.numpy(), np.asarray(want))
+
+
 def test_preprocess_draws_two_modality_masks():
     raw = _raw(6, 1, False)
     gen = torch.Generator().manual_seed(0)
@@ -342,7 +363,8 @@ TRAINER_SLICE = ("train/schedule.py", "train/trainer.py", "obsv/logger.py",
                  "parallel/sequence.py", "parallel/expert.py",
                  "parallel/dryrun.py", "ops/moe.py", "ops/collectives.py",
                  "ops/cuda/stage_tail.py", "ops/conv3x3.py",
-                 "ops/cuda/conv3x3.py", "ops/cuda/probes.py")
+                 "ops/cuda/conv3x3.py", "ops/cuda/probes.py",
+                 "eval/synthetic_rank1.py")
 
 
 def _port_sources():

@@ -107,6 +107,10 @@ def get_lib() -> Optional[ctypes.CDLL]:
         return _LIB
 
 
+def native_available() -> bool:
+    return get_lib() is not None
+
+
 def gather_rows(src: np.ndarray, idx: np.ndarray,
                 out: Optional[np.ndarray] = None) -> np.ndarray:
     """out[i] = src[idx[i]] for a C-contiguous (or memory-mapped) 2D+ array.

@@ -69,6 +69,15 @@ def normalize_uint8(raw: torch.Tensor, silhouette: bool = False) -> torch.Tensor
     return x.to(torch.float32)
 
 
+def normalize_volume(raw: torch.Tensor, modality: str, ntype: int = 2,
+                     compress_factor: float = 100.0, clip_max: float = 0.0,
+                     clip_min: float = 0.0) -> torch.Tensor:
+    """The whole ``__load_dd`` normalization of one modality's planes."""
+    if modality == "of":
+        return dequantize(raw, compress_factor, ntype, clip_max, clip_min)
+    return normalize_uint8(raw, silhouette=(modality == "silhouette"))
+
+
 def planes_to_frames(x: torch.Tensor, channels: int) -> torch.Tensor:
     """(..., T*C, H, W) channel-planes -> (..., T, H, W, C) frames.
 

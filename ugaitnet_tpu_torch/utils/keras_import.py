@@ -174,6 +174,11 @@ def load_gaitset_weights(h5path: str, params: Any,
     return params
 
 
+def load_gaitset_2mod_weights(h5path: str, params: Any) -> Any:
+    """Flagship alias (kept for callers of the round-1 API)."""
+    return load_gaitset_weights(h5path, params)
+
+
 def load_gaitset_branch_weights(h5path: str, branch_params: Dict,
                                 src_index: int,
                                 weights: Dict[str, List[np.ndarray]] = None
