@@ -20,9 +20,11 @@ depend on thread timing and a resumed run replays them.
 
 from __future__ import annotations
 
+import itertools
 import os
 import queue
 import threading
+import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -32,6 +34,7 @@ from ugaitnet_tpu_torch.core.config import MODALITY_CHANNELS, DataConfig
 from ugaitnet_tpu_torch.core.device import DeviceLike, resolve_device
 from ugaitnet_tpu_torch.data.native import gather_rows
 from ugaitnet_tpu_torch.data.schema import GaitDataset
+from ugaitnet_tpu_torch.obsv import spans
 from ugaitnet_tpu_torch.ops import augment as A
 from ugaitnet_tpu_torch.ops.preprocess import (apply_modality_dropout,
                                                 clip_augment, dequant_scale,
@@ -43,7 +46,12 @@ from ugaitnet_tpu_torch.ops.preprocess import (apply_modality_dropout,
 
 class HostBatch(dict):
     """Raw numpy arrays staged for one batch: per-modality uint8/int16
-    volumes + present flags, plus dense labels."""
+    volumes + present flags, plus dense labels.  ``gathered``: the
+    ``time.time_ns()`` start and end of ``GaitPipeline.gather`` and the
+    native id of the thread that ran it, so that the thread that takes the
+    batch can record a gather that ran on another, untraced thread."""
+
+    gathered: Optional[Tuple[int, int, int]] = None
 
 
 _TORCH_DTYPE = {np.dtype(t).str: getattr(torch, t)
@@ -173,7 +181,7 @@ def _dropout_masks(generator: Optional[torch.Generator], batch: int,
             copies.append(1.0 - eye[1 - choice])
         while len(copies) < expand:
             copies.append(copies[1])
-        return torch.stack(copies, dim=1).to(device, non_blocking=True)
+        return _to_device(torch.stack(copies, dim=1), device)
 
     rows = torch.arange(batch)
     even = (rows % 2 == 0)[:, None]
@@ -193,7 +201,14 @@ def _dropout_masks(generator: Optional[torch.Generator], batch: int,
                                      + (1.0 - active))
         mask_odd = eye[(rows + ex) % nmods]
         copies.append(torch.where(even, mask_even, mask_odd))
-    return torch.stack(copies, dim=1).to(device, non_blocking=True)
+    return _to_device(torch.stack(copies, dim=1), device)
+
+
+def _to_device(x: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """x on ``device`` without blocking the host where it can; a move from
+    pageable memory is counted (``input.pageable_copies``)."""
+    spans.count_pageable("input.pageable_copies", x, device)
+    return x.to(device, non_blocking=True)
 
 
 def _expand_rows(x: torch.Tensor, expand: int) -> torch.Tensor:
@@ -211,7 +226,7 @@ def _as_tensor(v, device: torch.device) -> torch.Tensor:
         if not (a.flags["C_CONTIGUOUS"] and a.flags["WRITEABLE"]):
             a = np.array(a, copy=True, order="C")
         v = torch.from_numpy(a)
-    return v.to(device, non_blocking=True)
+    return _to_device(v, device)
 
 
 def _transform_params(params: Optional[Sequence[A.TransformParams]],
@@ -347,7 +362,9 @@ class GaitPipeline:
     def gather(self, batch_idx: np.ndarray) -> HostBatch:
         """The host half of ``load``: the raw rows of ``batch_idx`` (indices
         into this pipeline's view, self.indices), page-locked when the
-        pipeline's device is a card.  Safe on a worker thread."""
+        pipeline's device is a card.  Safe on a worker thread.  The batch
+        carries the gather's clock stamps (``HostBatch.gathered``)."""
+        start = time.time_ns()
         raw = gather_host_batch(self.ds, self.indices[batch_idx],
                                 self.modalities, self.labmap,
                                 pin=self.device.type == "cuda")
@@ -367,26 +384,32 @@ class GaitPipeline:
                         f"{src_max}; pass one (mean, std) row per dataset")
                 raw[f"norm_mean_{m}"] = mean2
                 raw[f"norm_std_{m}"] = np.atleast_2d(std).astype(np.float32)
+        raw.gathered = (start, time.time_ns(), threading.get_native_id())
         return raw
 
     def preprocess(self, raw: HostBatch,
                    generator: Optional[torch.Generator] = None,
-                   expand: Optional[int] = None):
+                   expand: Optional[int] = None, span_id=None):
         """The device half of ``load``: copy to the device and preprocess;
-        augmentation and dropout masks draw from ``generator``."""
+        augmentation and dropout masks draw from ``generator``.  Traced as
+        the span ``input.preprocess`` with ``span_id``."""
         e = self.cfg.expand_level if expand is None else expand
-        return preprocess_batch(
-            raw, self.modalities, self.channels, self.compress_factors,
-            self.ds.ntype, e, self.augmenting, self.cfg,
-            normalize=self.norm_stats is not None, generator=generator,
-            device=self.device)
+        with spans.span("input.preprocess", span_id):
+            return preprocess_batch(
+                raw, self.modalities, self.channels, self.compress_factors,
+                self.ds.ntype, e, self.augmenting, self.cfg,
+                normalize=self.norm_stats is not None, generator=generator,
+                device=self.device)
 
     def load(self, batch_idx: np.ndarray,
              generator: Optional[torch.Generator] = None,
              expand: Optional[int] = None):
         """batch_idx indexes into this pipeline's view (self.indices);
-        augmentation and dropout masks draw from ``generator``."""
-        return self.preprocess(self.gather(batch_idx), generator, expand)
+        augmentation and dropout masks draw from ``generator``.  The
+        gather and the preprocess are traced."""
+        with spans.span("input.gather"):
+            raw = self.gather(batch_idx)
+        return self.preprocess(raw, generator, expand)
 
 
 def batch_generator(seed: int, epoch: int, index: int) -> torch.Generator:
@@ -450,16 +473,23 @@ class PrefetchLoader:
         return False
 
     def __iter__(self):
+        # traced spans: the wait for the producer, the producer's gather
+        # (recorded here, since the producer's thread is not traced) and
+        # the preprocess, each with the id (epoch, batch index)
         try:
-            while True:
-                item = self._q.get()
+            for n in itertools.count():
+                with spans.span("input.queue_wait", (self.epoch, n)):
+                    item = self._q.get()
                 if item is None:
                     return
                 if isinstance(item, BaseException):
                     raise item
                 i, raw = item
+                spans.add("input.gather", *raw.gathered[:2], (self.epoch, i),
+                          raw.gathered[2])
                 yield self.pipe.preprocess(
-                    raw, batch_generator(self.seed, self.epoch, i))
+                    raw, batch_generator(self.seed, self.epoch, i),
+                    span_id=(self.epoch, i))
         finally:
             self.close()
 

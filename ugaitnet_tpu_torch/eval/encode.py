@@ -21,6 +21,7 @@ strip of parts, joined over the model group.
 
 from __future__ import annotations
 
+import itertools
 from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
@@ -31,11 +32,14 @@ from ugaitnet_tpu_torch.data.pipeline import GaitPipeline
 from ugaitnet_tpu_torch.data.sampler import SequentialSampler
 from ugaitnet_tpu_torch.data.schema import GaitDataset
 from ugaitnet_tpu_torch.models.network import UGaitNet, tp_strips
+from ugaitnet_tpu_torch.obsv import spans
 from ugaitnet_tpu_torch.ops.augment import mirror_volume
 from ugaitnet_tpu_torch.ops.collectives import (DATA_AXIS, gather_along,
                                                 gather_rows_nograd)
 
 TYPECODE_TAP = {1: "signature", 3: "flatten"}
+# the pass number of the traced spans' ids (pass, batch)
+_PASSES = itertools.count()
 
 
 def _tap(out: Dict[str, torch.Tensor], typecode: int) -> torch.Tensor:
@@ -109,34 +113,50 @@ def encode_dataset(model: UGaitNet, ds: GaitDataset,
         out = model(vols, flags, train=False, group=group)
         return gather_rows_nograd(_tap_whole(out, typecode, model), group)
 
+    # traced spans (obsv/spans.py), with the id (pass, batch), follow each
+    # other: input.gather (the batch's rows to the host, the batch before
+    # released), encode.launch (copy, preprocess and forward enqueued) and
+    # encode.readback (.cpu()) partition each batch; encode.collect is the
+    # pass's end
+    npass = next(_PASSES)
     codes, metas = [], []
     with torch.inference_mode():
-        for batch_idx in SequentialSampler(n, batch_size).epoch():
+        for b, batch_idx in enumerate(
+                SequentialSampler(n, batch_size).epoch()):
             # pad the trailing partial batch to the full size with
             # use_flags == 0 rows: gating zeroes their embeddings, so under
             # l2_mode="reference" (batch-axis signature L2) they add nothing
             # to the column norms and the real rows equal an unpadded
             # forward; duplicate-row padding would skew every real code
             real = len(batch_idx)
-            valid = None
             if real < batch_size:
                 batch_idx = np.concatenate(
                     [batch_idx, np.full(batch_size - real, batch_idx[-1])])
-                valid = torch.zeros(batch_size, device=model.device)
-                valid[:real] = 1.0
+            sid = (npass, b)
             # a mesh rank loads and encodes its own rows of the batch
-            vols, flags, _ = pipe.load(batch_idx[shard], expand=1)
-            flags = [f * u for f, u in zip(flags, use_mods)]
-            if valid is not None:
-                flags = [f * valid[shard] for f in flags]
-            codes.append(encode(vols, flags)[:real].cpu())
+            with spans.span("input.gather", sid):
+                raw = pipe.gather(batch_idx[shard])
+            with spans.span("encode.launch", sid):
+                vols, flags, _ = pipe.preprocess(raw, expand=1, span_id=sid)
+                flags = [f * u for f, u in zip(flags, use_mods)]
+                if real < batch_size:
+                    valid = torch.zeros(batch_size, device=model.device)
+                    valid[:real] = 1.0
+                    flags = [f * valid[shard] for f in flags]
+                out = encode(vols, flags)[:real]
+            with spans.span("encode.readback", sid):
+                codes.append(out.cpu())
             metas.append(batch_idx[:real])
             if mirror:
-                mvols = [mirror_volume(v, is_of=(m == "of"))
-                         for v, m in zip(vols, modalities)]
-                codes.append(encode(mvols, flags)[:real].cpu())
+                with spans.span("encode.launch", sid):
+                    mvols = [mirror_volume(v, is_of=(m == "of"))
+                             for v, m in zip(vols, modalities)]
+                    out = encode(mvols, flags)[:real]
+                with spans.span("encode.readback", sid):
+                    codes.append(out.cpu())
                 metas.append(batch_idx[:real])
 
-    sel = pipe.indices[np.concatenate(metas)]
-    return (torch.cat(codes).numpy(), np.asarray(ds.labels[sel]),
-            np.asarray(ds.video_ids[sel]), np.asarray(ds.cams[sel]))
+    with spans.span("encode.collect", npass):
+        sel = pipe.indices[np.concatenate(metas)]
+        return (torch.cat(codes).numpy(), np.asarray(ds.labels[sel]),
+                np.asarray(ds.video_ids[sel]), np.asarray(ds.cams[sel]))

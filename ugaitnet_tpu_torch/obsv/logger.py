@@ -1,15 +1,16 @@
-"""Observability: scalar metrics, histograms, embedding exports, profiling.
+"""Observability: scalar metrics, embedding exports, profiling.
 
 Port of ``ugaitnet_tpu/obsv/logger.py``, in the same ``metrics.jsonl``
 format, so one reader serves both packages:
 
   * an always-on JSONL metrics stream (metrics.jsonl per experiment dir);
-  * optional TensorBoard scalars/histograms via torch.utils.tensorboard when
+  * optional TensorBoard scalars via torch.utils.tensorboard when
     importable;
   * embedding projector export: codes + labels as .npy/.tsv in the TB
     projector layout, with a sprite sheet when thumbnails are given;
   * ``profile(logdir)``: a ``torch.profiler`` trace around a block (the
-    profile_batch analogue), written as a Chrome trace.
+    profile_batch analogue), written as a Chrome trace with the program's
+    spans (``obsv/spans.py``) in it.
 """
 
 from __future__ import annotations
@@ -59,10 +60,6 @@ class MetricsLogger:
                 if k not in ("step", "time") and v is not None:
                     self._tb.add_scalar(k, v, step)
 
-    def log_histogram(self, step: int, name: str, values: np.ndarray) -> None:
-        if self._tb is not None:
-            self._tb.add_histogram(name, np.asarray(values), step)
-
     def export_embeddings(self, step: int, codes: np.ndarray,
                           labels: Sequence, tag: str = "signatures",
                           images: Sequence = None) -> str:
@@ -95,19 +92,31 @@ class MetricsLogger:
 @contextlib.contextmanager
 def profile(logdir: str, enabled: bool = True):
     """``torch.profiler`` trace (CPU, and CUDA when a card is present) around
-    a block, written to ``<logdir>/trace.json`` for chrome://tracing."""
+    a block, written to ``<logdir>/trace.json`` for chrome://tracing.  The
+    spans the block recorded (``obsv/spans.py``) are added to it as events
+    of category ``ugn_span`` on the trace's clock, the prefetch producer's
+    gathers among them, which the profiler does not see."""
     if not enabled:
         yield None
         return
     import torch
     from torch.profiler import ProfilerActivity
+    from ugaitnet_tpu_torch.obsv import spans
     acts = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         acts.append(ProfilerActivity.CUDA)
     os.makedirs(logdir, exist_ok=True)
+    since = spans.mark()
     with torch.profiler.profile(activities=acts) as prof:
         yield prof
-    prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
+    path = os.path.join(logdir, "trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        trace = json.load(f)
+    trace["traceEvents"] = trace.get("traceEvents", []) + spans.chrome_events(
+        since, int(trace["baseTimeNanoseconds"]), os.getpid())
+    with open(path, "w") as f:
+        json.dump(trace, f)
 
 
 def read_metrics(experdir: str) -> list:

@@ -32,6 +32,7 @@ from typing import NamedTuple, Optional, Sequence
 import torch
 
 from ugaitnet_tpu_torch.core.device import DeviceLike, resolve_device
+from ugaitnet_tpu_torch.obsv import spans
 
 
 class TransformParams(NamedTuple):
@@ -92,8 +93,11 @@ def random_transform_params(generator: Optional[torch.Generator], batch: int,
         brightness = torch.ones(batch, device=gdev)
         channel_shift = torch.zeros(batch, device=gdev)
     clip_of = uniform() < clip_prob
-    return TransformParams(*(t.to(dev, non_blocking=True) for t in (
-        apply, tx, ty, zx, zy, flip, brightness, channel_shift, clip_of)))
+    params = (apply, tx, ty, zx, zy, flip, brightness, channel_shift,
+              clip_of)
+    for t in params:
+        spans.count_pageable("input.pageable_copies", t, dev)
+    return TransformParams(*(t.to(dev, non_blocking=True) for t in params))
 
 
 # --- (B, T, C, H, W) implementations ---------------------------------------

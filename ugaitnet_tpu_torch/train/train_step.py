@@ -44,6 +44,7 @@ import torch
 from ugaitnet_tpu_torch.core.config import ModelConfig, TrainConfig
 from ugaitnet_tpu_torch.models.branches import ShardKey, fold_key
 from ugaitnet_tpu_torch.models.network import UGaitNet, tp_strips
+from ugaitnet_tpu_torch.obsv import spans
 from ugaitnet_tpu_torch.ops import losses as L
 from ugaitnet_tpu_torch.ops.collectives import (DATA_AXIS, all_gather_rows,
                                                 all_reduce_mean,
@@ -357,26 +358,35 @@ def make_train_step(mcfg: ModelConfig, tcfg: TrainConfig, mesh=None,
     keeps its rows) or the per-shard form (a dropout stream of the data
     index, never of another axis's, whose ranks hold the same rows and must
     draw the same masks); the gradients are then averaged over every
-    rank."""
+    rank.
+
+    Traced (``obsv/spans.py``) as the span ``train.step`` with the step
+    count as its id, holding ``train.forward`` (forward and losses),
+    ``train.backward`` (with the gradient average) and ``train.update``:
+    the host's time to enqueue each."""
     group = None if mesh is None else mesh.group(DATA_AXIS)
 
     def step(state: TrainState, batch: Batch):
-        key = state.step
+        sid = key = state.step
         if mesh is not None:
             b, i = batch.labels.shape[0], mesh.index(DATA_AXIS)
             key = (ShardKey(state.step, b * mesh.size(DATA_AXIS), i * b)
                    if global_batch else fold_key(state.step, i))
-        state.model.train()
-        state.optimizer.zero_grad(set_to_none=True)
-        total, metrics = compute_losses(state.model, batch, mcfg, tcfg,
-                                        key=key, group=group,
-                                        global_batch=global_batch)
-        total.backward()
-        if mesh is not None:
-            average_gradients(state.model, mesh)
-        state.optimizer.step()
-        state.step += 1
-        return state, {k: v.detach() for k, v in metrics.items()}
+        with spans.span("train.step", sid):
+            state.model.train()
+            state.optimizer.zero_grad(set_to_none=True)
+            with spans.span("train.forward", sid):
+                total, metrics = compute_losses(state.model, batch, mcfg,
+                                                tcfg, key=key, group=group,
+                                                global_batch=global_batch)
+            with spans.span("train.backward", sid):
+                total.backward()
+                if mesh is not None:
+                    average_gradients(state.model, mesh)
+            with spans.span("train.update", sid):
+                state.optimizer.step()
+            state.step += 1
+            return state, {k: v.detach() for k, v in metrics.items()}
     return step
 
 
