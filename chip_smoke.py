@@ -64,6 +64,15 @@ channels (32, 64, 128), part_dim 256, 62 parts, sign_max merge, 74 classes):
      turns with x * 2 and the scalar variant, with its share of the bound,
      its factor to x * 2 and the earlier kernel's time, quoted
      (EARLIER_SCALE2_MS), and with the transpose;
+ 1e. the 3D CNN's first-conv weight gradient (``csrc/conv3d_wgrad.cu``,
+     float32 FFMA) at its two shapes (120 x {2, 1} x 25 x 60 x 60 as the
+     NDHWC view of the clip, 64 outputs, 3 x 5 x 5, stride 1 x 2 x 2):
+     dW and db against the float64 plain version within WGRAD_REL of max,
+     with gy as autograd hands it (NCDHW) and channels-last; three planted
+     faults (a tap shifted, one (n, t) slab skipped, the bias left out)
+     must read above it; two launches bitwise; kernel, plain (float32) and
+     cuDNN (``convolution_backward``, dW and db alone) times against the
+     bound;
   2. embed: preprocess_batch on raw int16 OF / uint8 gray at B = 128, then
      the forward, in float32 and bfloat16 (inputs perturbed every batch);
      the bf16 forward launches the conv kernel exactly 4 times (a_conv2
@@ -162,7 +171,9 @@ channels (32, 64, 128), part_dim 256, 62 parts, sign_max merge, 74 classes):
      state, batch and dropout masks (losses within 1e-5, the signature
      gradient against planted faults, as in phase 3), the Keras L2 term
      card vs CPU within 1e-6 relative, and
-     the int8 encode's cosine to float32 >= 0.99 on 128 clips;
+     the int8 encode's cosine to float32 >= 0.99 on 128 clips; the 3D
+     CNN's steps launch the first-conv weight-gradient kernel (1e) exactly
+     twice a step (conv0 of each branch), the 2D CNN's never;
  10. the rest of the model and loss surface at the flagship's width
      (deterministic cuDNN): casenet C with postriplet 2, aux heads and
      dropcode 0.4, 3 Adam steps at B = 120 through the triplet kernel
@@ -298,6 +309,7 @@ import gc
 import importlib.util
 import io
 import json
+import math
 import os
 import re
 import shutil
@@ -448,6 +460,17 @@ EARLIER_SCALE2_MS = 0.1519
 HOPPER_CASES = ("a_conv6", "a_conv2", "a_conv6 TP half (Ci 64)",
                 "a_conv2 TP half (Ci 16)")
 CONV_KERNELS = ("conv3x3_fwd_kernel",)
+WGRAD_SRC = "ugaitnet_tpu_torch/csrc/conv3d_wgrad.cu"
+# phase 1e: the first-conv weight gradient against float64, per tensor:
+# max |kernel - float64| <= WGRAD_REL * max |float64|.  float32 sums over
+# up to 2.16 M positions read ~1e-6 (H100, PERF.md section 6); a tap
+# shifted, a slab skipped or the bias left out read 1e-2 and more
+WGRAD_REL = 1e-5
+WGRAD_FAULTS = ("tap shifted", "slab skipped", "bias left out")
+# the two first convs of the 3D CNN: input channels, and the shapes
+WGRAD_CELL = {"of": 2, "gray": 1}
+WGRAD_SHAPE = (120, 25, 60, 60, 64)         # N, T, H, W, Co
+WGRAD_KERNEL, WGRAD_STRIDE = (3, 5, 5), (1, 2, 2)
 PEAK_BF16 = 989e12              # dense bf16 tensor-core FLOP/s
 # the conv kernel (and mm_fwd) against its plain version on the same
 # inputs, per element: |kernel - plain| <= ulp(plain) + CONV_SUM_REL * S,
@@ -1412,6 +1435,98 @@ def probe_phase(card):
     torch.cuda.empty_cache()
     out["phase_s"] = time.perf_counter() - t_phase
     print(f"phase 1d: {out['phase_s']:.1f} s")
+    return out
+
+
+def wgrad_phase(card):
+    """1e. The 3D CNN's first-conv weight gradient against float64 at its
+    two shapes, planted faults, bitwise repeat, times beside cuDNN's and
+    the plain version's."""
+    from ugaitnet_tpu_torch.ops.cuda import conv3d_wgrad as CW
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(17)
+    t_phase = time.perf_counter()
+    CW.launches = 0
+    n, t, h, w, co = WGRAD_SHAPE
+    kern, stride = WGRAD_KERNEL, WGRAD_STRIDE
+    out = {"by_shape": {}}
+    for name, ci in WGRAD_CELL.items():
+        x = torch.randn((n, t, h, w, ci), device=dev, generator=gen)
+        x = x.permute(0, 4, 1, 2, 3)                  # the NDHWC view
+        outs = CW.out_size((t, h, w), kern, stride)
+        gy = torch.randn((n, co, *outs), device=dev, generator=gen)
+        wt = torch.empty((co, ci, *kern), device=dev)
+        rw, rb = CW.wgrad_plain(x.double(), gy.double(), kern, stride)
+
+        def reading(dw, db):
+            return max(rel_err(dw.double(), rw), rel_err(db.double(), rb))
+
+        def cudnn():
+            return torch.ops.aten.convolution_backward(
+                gy, x, wt, [co], list(stride), [0, 0, 0], [1, 1, 1], False,
+                [0, 0, 0], 1, [False, True, True])
+        dw, db = CW.conv3d_wgrad(x, gy, kern, stride)
+        dw2, db2 = CW.conv3d_wgrad(x, gy, kern, stride)
+        gcl = gy.contiguous(memory_format=torch.channels_last_3d)
+        gz = gy.clone()
+        gz[7, :, 11] = 0                              # one (n, t) slab
+        r = {"max_rel_err": reading(dw, db),
+             "channels_last_gy": reading(*CW.conv3d_wgrad(x, gcl, kern,
+                                                          stride)),
+             "bitwise": bool(torch.equal(dw, dw2) and torch.equal(db, db2)),
+             "cudnn_rel_err": reading(*cudnn()[1:]),
+             "max_abs_err": max(float((dw.double() - rw).abs().max()),
+                                float((db.double() - rb).abs().max())),
+             "faults": {
+                 "tap shifted": rel_err(dw[..., 1:].double(), rw[..., :-1]),
+                 "slab skipped": reading(*CW.conv3d_wgrad(x, gz, kern,
+                                                          stride)),
+                 "bias left out": reading(dw, torch.zeros_like(db))}}
+        del rw, rb, dw2, db2, gcl, gz
+        r["ms"] = cuda_ms(lambda: CW.conv3d_wgrad(x, gy, kern, stride))
+        r["plain_ms"] = cuda_ms(
+            lambda: CW.wgrad_plain(x, gy, kern, stride), 3, 1)
+        r["library_ms"] = cuda_ms(cudnn, 3, 1)
+        taps = ci * math.prod(kern)
+        positions = n * math.prod(outs)
+        r["bound_ms"], r["bound_by"] = bound(
+            4 * (x.numel() + gy.numel() + co * (taps + 1)),
+            2 * co * positions * (taps + 1))
+        r["share_of_bound"] = r["bound_ms"] / r["ms"]
+        r["factor_to_library"] = r["ms"] / r["library_ms"]
+        out["by_shape"][name] = r
+        print(f"conv3d_wgrad {name} (N {n}, Ci {ci}, {t}x{h}x{w} -> "
+              f"{'x'.join(map(str, outs))}, Co {co}): max rel err "
+              f"{r['max_rel_err']:.2e} (channels-last gy "
+              f"{r['channels_last_gy']:.2e}; cuDNN {r['cudnn_rel_err']:.2e})"
+              f" <= {WGRAD_REL}; planted faults "
+              + ", ".join(f"{f} {r['faults'][f]:.2e}" for f in WGRAD_FAULTS)
+              + f" > {WGRAD_REL}; bitwise {r['bitwise']}; kernel {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms, cuDNN {r['library_ms']:.4f} ms "
+              f"({r['factor_to_library']:.4f}x of it), bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}; "
+              f"{r['share_of_bound']:.1%} of it) [{card}]")
+        check(r["max_rel_err"] <= WGRAD_REL
+              and r["channels_last_gy"] <= WGRAD_REL,
+              f"conv3d_wgrad {name}: kernel vs float64")
+        check(r["bitwise"], f"conv3d_wgrad {name}: two launches differ")
+        check(all(r["faults"][f] > WGRAD_REL for f in WGRAD_FAULTS),
+              f"conv3d_wgrad {name}: a planted fault reads under the limit")
+        del x, gy, wt, dw, db
+        torch.cuda.empty_cache()
+    by = out["by_shape"]
+    for k in ("ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err"):
+        out[k] = (sum if k != "max_abs_err" else max)(
+            v[k] for v in by.values())
+    out["bound_by"] = by["of"]["bound_by"]
+    out["share_of_bound"] = out["bound_ms"] / out["ms"]
+    out["factor_to_library"] = out["ms"] / out["library_ms"]
+    out["launches"] = CW.launches
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"conv3d_wgrad of + gray: kernel {out['ms']:.4f} ms, cuDNN "
+          f"{out['library_ms']:.4f} ms, bound {out['bound_ms']:.4f} ms "
+          f"({out['share_of_bound']:.1%}); {out['launches']} launches; "
+          f"phase 1e: {out['phase_s']:.1f} s [{card}]")
     return out
 
 
@@ -2748,6 +2863,7 @@ def branch_phase(card):
     from ugaitnet_tpu_torch.core.config import DataConfig
     from ugaitnet_tpu_torch.data.pipeline import preprocess_batch
     from ugaitnet_tpu_torch.models.network import UGaitNet
+    from ugaitnet_tpu_torch.ops.cuda import conv3d_wgrad as CW
     from ugaitnet_tpu_torch.ops.quantize import (encode_int8,
                                                  quantize_model_params)
     from ugaitnet_tpu_torch.train.train_step import (Batch, init_state,
@@ -2800,6 +2916,7 @@ def branch_phase(card):
         raw = raw_batch(40, 8, seed=12)
         gen = torch.Generator().manual_seed(0)
         step_ms, losses, kstore = [], [], {}
+        CW.launches = 0
         for i in range(BRANCH_STEPS):
             r = dict(raw)
             r["raw_of"] = raw["raw_of"] ^ i
@@ -2819,6 +2936,13 @@ def branch_phase(card):
             step_ms.append((time.perf_counter() - t0) * 1e3)
             losses.append({k: float(x) for k, x in m.items()})
         hook.remove()
+        # conv0 of each 3D branch takes the hand weight gradient
+        res["wgrad_launches"] = CW.launches
+        want = 2 * BRANCH_STEPS if name == "conv3d" else 0
+        print(f"{name}: conv3d_wgrad launches in {BRANCH_STEPS} steps "
+              f"{CW.launches} (expected {want}) [{card}]")
+        check(CW.launches == want, f"{name}: conv3d_wgrad launched "
+              f"{CW.launches}x in {BRANCH_STEPS} steps, expected {want}")
         check(tuple(v[0].shape)[0] == 120, "B = 120")
         check(all(np.isfinite(x) for m in losses for x in m.values()),
               f"{name} losses {losses}")
@@ -5383,7 +5507,8 @@ def main():
     t0 = time.perf_counter()
     # one nvcc per source, all started together, then load them
     from concurrent.futures import ThreadPoolExecutor
-    sources = ("triplet_kernel", "stage_tail", "conv3x3", "probes")
+    sources = ("triplet_kernel", "stage_tail", "conv3x3", "probes",
+               "conv3d_wgrad")
     with ThreadPoolExecutor(len(sources)) as pool:
         list(pool.map(build.build, sources))
     for name in sources:
@@ -5521,6 +5646,9 @@ def main():
     # ---- 1c. the conv kernel vs plain; 1d. the probes ----------------------
     conv_res = conv_phase(card)
     probe_res = probe_phase(card)
+
+    # ---- 1e. the 3D CNN's first-conv weight gradient vs float64 -----------
+    wgrad_res = wgrad_phase(card)
 
     # ---- full-width flagship ----------------------------------------------
     dcfg = DataConfig()
@@ -5959,6 +6087,25 @@ def main():
         "variant_launches": probe_res["scale2_variant_launches"],
         "scalar_ms": cp["scalar_ms"],
         "with_transpose_ms": cp["with_transpose_ms"]})
+    # the 3D CNN's first-conv weight gradient: times of the two first convs
+    # together (each under "by_shape"); launches of phase 9's 3D CNN steps
+    wg3 = branch_res["conv3d"]["wgrad_launches"]
+    kernels.append({
+        "name": "conv3d_wgrad", "route": "cuda", "source": WGRAD_SRC,
+        "replaces": None, "launches": wg3,
+        "launches_by_path": {"branch_phase_3d_steps": wg3,
+                             "wgrad_phase": wgrad_res["launches"]},
+        "max_abs_err": wgrad_res["max_abs_err"], "ms": wgrad_res["ms"],
+        "plain_ms": wgrad_res["plain_ms"],
+        "bound_ms": wgrad_res["bound_ms"],
+        "bound_by": wgrad_res["bound_by"],
+        "library_ms": wgrad_res["library_ms"],
+        "share_of_bound": wgrad_res["share_of_bound"],
+        "factor_to_library": wgrad_res["factor_to_library"],
+        "by_shape": {k: {f: v[f] for f in (
+            "ms", "plain_ms", "bound_ms", "library_ms", "share_of_bound",
+            "factor_to_library", "max_rel_err")}
+            for k, v in wgrad_res["by_shape"].items()}})
     print(json.dumps({"card": card, "embed_ms_per_batch": embed,
                       "train_step_ms": train_ms,
                       "train_step_bf16_ms": bf_train_ms,
@@ -5980,6 +6127,7 @@ def main():
                       "tp_pp": tp_res, "convergence": p14,
                       "stage_tail": tail_res,
                       "conv3x3": conv_res, "probes": probe_res,
+                      "conv3d_wgrad": wgrad_res,
                       "embed_bf16_route": embed_route,
                       "train_tail_step": tail_step,
                       "train_tail_ab": tail_ab}))

@@ -44,6 +44,7 @@ from torch import nn
 
 from ugaitnet_tpu_torch.core.config import FRAME_H, FRAME_W
 from ugaitnet_tpu_torch.models.gaitset import glorot_
+from ugaitnet_tpu_torch.ops.cuda import conv3d_wgrad as CW
 from ugaitnet_tpu_torch.ops.pooling import max_pool_2x2
 
 # (filters, kernel, strides), mj_uwyhNets_ba.py:347-363; shared with the
@@ -122,7 +123,10 @@ def keyed_dropout(x: torch.Tensor, rate: float, seed: int,
 
 class Conv(nn.Module):
     """VALID conv with bias over NCHW (2D) or NCDHW (3D); weight OIHW /
-    OIDHW.  ``he``: he-uniform kernel (the ``code`` layer), else glorot."""
+    OIDHW.  ``he``: he-uniform kernel (the ``code`` layer), else glorot.
+    A 3D conv with few taps a output channel, trained in float32 on a card,
+    takes its weight and bias gradients from the hand kernel
+    (``ops/cuda/conv3d_wgrad.py:engages``: the first conv of the 3D CNN)."""
 
     def __init__(self, ci: int, co: int, kernel: Sequence[int],
                  strides: Sequence[int], dtype: torch.dtype,
@@ -140,10 +144,12 @@ class Conv(nn.Module):
         self.bias = nn.Parameter(torch.zeros(co))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        conv = F.conv3d if self.weight.ndim == 5 else F.conv2d
         dt = self.dtype
-        return conv(x.to(dt), self.weight.to(dt), self.bias.to(dt),
-                    stride=self.strides)
+        x, w, b = x.to(dt), self.weight.to(dt), self.bias.to(dt)
+        if CW.engages(x, w):
+            return CW.conv3d(x, w, b, self.strides)
+        conv = F.conv3d if w.ndim == 5 else F.conv2d
+        return conv(x, w, b, stride=self.strides)
 
 
 class Dense(nn.Linear):
