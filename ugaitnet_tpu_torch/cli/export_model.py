@@ -74,8 +74,10 @@ def main(argv=None):
                                            device=args.device)
     modalities = tuple(b.modality for b in mcfg.branches)
     if args.keras_h5:
+        from ugaitnet_tpu_torch.models.deepgaitv2 import refuse
         from ugaitnet_tpu_torch.utils.keras_export import export_keras_weights
         from ugaitnet_tpu_torch.utils.weights import state_dict_to_flax
+        refuse(mcfg, "Keras export")
         export_keras_weights(state_dict_to_flax(model.state_dict()),
                              args.keras_h5, args.keras_template)
         print(f"* wrote reference-layout Keras weights -> {args.keras_h5}",

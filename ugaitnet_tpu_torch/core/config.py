@@ -45,6 +45,8 @@ class BranchConfig:
       - "conv3d":  6-layer strided 3D CNN (reference `build_3Dbranch`, :336-417)
       - "gaitset": two-stream set network with HPP part pooling
                    (reference `build_gaitset_branch`, :419-484)
+      - "deepgaitv2": the port's own DeepGaitV2, configured by
+                   ``DeepGaitV2Config`` below
     """
 
     kind: str = "gaitset"
@@ -84,6 +86,31 @@ class BranchConfig:
     def num_parts(self) -> int:
         # Both streams contribute one feature per bin.
         return 2 * sum(self.hpp_bins)
+
+
+@dataclass(frozen=True)
+class DeepGaitV2Config(BranchConfig):
+    """A "deepgaitv2" branch (port only, ``models/deepgaitv2.py``):
+    DeepGaitV2's 3D mode (Fan et al., arXiv:2303.03301; OpenGait
+    ``deepgaitv2.py``), a single-modality model with its BNNeck id head.
+    A subclass, so that ``BranchConfig`` keeps the JAX package's fields.
+
+    stage_channels / stage_blocks: OpenGait's ``Backbone.channels`` /
+    ``layers`` (the stem's width is the first); ``hpp_bins`` and
+    ``part_dim`` its HPP bins and ``SeparateFCs`` width; ``logit_scale``
+    the cosine logits' scale (OpenGait's ``CrossEntropyLoss.scale``)."""
+
+    kind: str = "deepgaitv2"
+    modality: str = "silhouette"
+    hpp_bins: Tuple[int, ...] = (16,)
+    stage_channels: Tuple[int, ...] = (64, 128, 256, 512)
+    stage_blocks: Tuple[int, ...] = (1, 4, 4, 1)
+    logit_scale: float = 16.0
+
+    @property
+    def num_parts(self) -> int:
+        # one map, one feature per bin
+        return sum(self.hpp_bins)
 
 
 @dataclass(frozen=True)
@@ -150,7 +177,8 @@ class ModelConfig:
         """Leading signature axis after batch: 1 when the gaitset branch
         flattens its parts (flatten_output) or for dense branches."""
         b0 = self.branches[0]
-        if b0.kind == "gaitset" and not b0.flatten_output:
+        if b0.kind == "deepgaitv2" or (b0.kind == "gaitset"
+                                       and not b0.flatten_output):
             return b0.num_parts
         return 1
 
@@ -160,7 +188,19 @@ class ModelConfig:
         if b0.kind == "gaitset":
             return (b0.num_parts * b0.part_dim if b0.flatten_output
                     else b0.part_dim)
+        if b0.kind == "deepgaitv2":
+            return b0.part_dim
         return b0.ndense_units
+
+    @property
+    def bnneck_scale(self) -> float:
+        """The BNNeck head's logit scale where the model has that head (a
+        DeepGaitV2 branch with classes, ``models/deepgaitv2.py:BNNeck``),
+        else 0."""
+        b0 = self.branches[0]
+        if b0.kind == "deepgaitv2" and self.nclasses > 0:
+            return b0.logit_scale
+        return 0.0
 
 
 @dataclass(frozen=True)
@@ -203,7 +243,9 @@ class DataConfig:
 @dataclass(frozen=True)
 class TrainConfig:
     # adam | adam_keras (exact Keras update, trajectory-faithful for
-    # migrated reference checkpoints) | sgd | amsgrad | adamw
+    # migrated reference checkpoints) | sgd | amsgrad | adamw |
+    # sgd_opengait (port only: torch.optim.SGD with momentum and weight
+    # decay 5e-4, OpenGait's solver; train/train_step.py:make_optimizer)
     optimizer: str = "adam"
     lr: float = 1e-4
     momentum: float = 0.9
@@ -298,6 +340,8 @@ def load_json(path: str) -> Dict[str, Any]:
             continue
         if k == "model" and "branches" in v:
             v = dict(v)
-            v["branches"] = tuple(_rebuild(BranchConfig, b) for b in v["branches"])
+            v["branches"] = tuple(
+                _rebuild(DeepGaitV2Config if b.get("kind") == "deepgaitv2"
+                         else BranchConfig, b) for b in v["branches"])
         out[k] = _rebuild(cls, v)
     return out

@@ -122,17 +122,21 @@ def keyed_dropout(x: torch.Tensor, rate: float, seed: int,
 
 
 class Conv(nn.Module):
-    """VALID conv with bias over NCHW (2D) or NCDHW (3D); weight OIHW /
-    OIDHW.  ``he``: he-uniform kernel (the ``code`` layer), else glorot.
-    A 3D conv with few taps a output channel, trained in float32 on a card,
+    """Conv over NCHW (2D) or NCDHW (3D); weight OIHW / OIDHW.  VALID with
+    bias unless ``padding`` (zeros on each side of every spatial dim) or
+    ``bias=False`` say otherwise (DeepGaitV2's convs: padding 1, no bias).
+    ``he``: he-uniform kernel (the ``code`` layer), else glorot.  A VALID
+    3D conv with few taps a output channel, trained in float32 on a card,
     takes its weight and bias gradients from the hand kernel
     (``ops/cuda/conv3d_wgrad.py:engages``: the first conv of the 3D CNN)."""
 
     def __init__(self, ci: int, co: int, kernel: Sequence[int],
                  strides: Sequence[int], dtype: torch.dtype,
-                 generator: Optional[torch.Generator], he: bool = False):
+                 generator: Optional[torch.Generator], he: bool = False,
+                 padding: int = 0, bias: bool = True):
         super().__init__()
         self.strides = tuple(strides)
+        self.padding = padding
         self.dtype = dtype
         rf = math.prod(kernel)
         w = torch.empty((co, ci, *kernel))
@@ -141,15 +145,16 @@ class Conv(nn.Module):
         else:
             glorot_(w, rf * ci, rf * co, generator)
         self.weight = nn.Parameter(w)
-        self.bias = nn.Parameter(torch.zeros(co))
+        self.bias = nn.Parameter(torch.zeros(co)) if bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
-        x, w, b = x.to(dt), self.weight.to(dt), self.bias.to(dt)
-        if CW.engages(x, w):
+        x, w = x.to(dt), self.weight.to(dt)
+        b = None if self.bias is None else self.bias.to(dt)
+        if self.padding == 0 and b is not None and CW.engages(x, w):
             return CW.conv3d(x, w, b, self.strides)
         conv = F.conv3d if w.ndim == 5 else F.conv2d
-        return conv(x, w, b, stride=self.strides)
+        return conv(x, w, b, stride=self.strides, padding=self.padding)
 
 
 class Dense(nn.Linear):

@@ -10,6 +10,12 @@ branches.  Forward taps are the JAX module's dict keys: ``branches``,
 ``classprob`` and ``aux_logits``, and ``moe_aux`` (the sum of the MoE
 branches' load-balance losses) where a branch routes through experts.
 
+Beyond the JAX module, the port's DeepGaitV2 branch and its BNNeck id head
+(``models/deepgaitv2.py``): with a DeepGaitV2 branch and classes
+(``ModelConfig.bnneck_scale`` > 0) the head ``bnneck`` takes
+``classprob``'s place, ``classprob_logits`` are its scaled per-part cosine
+logits (B, P, classes) and ``bnneck`` its normalized feature.
+
 ``ModelConfig.seq_axis`` names the mesh axis (``parallel/sequence.py``)
 whose ranks each hold a slice of the frames: the model is built with that
 mesh, and its GaitSet set pools close over the axis's group.  ``group`` in
@@ -42,6 +48,7 @@ from torch.utils.checkpoint import checkpoint
 from ugaitnet_tpu_torch.core.config import (NUM_FRAMES, BranchConfig,
                                             ModelConfig)
 from ugaitnet_tpu_torch.core.device import DeviceLike, resolve_device
+from ugaitnet_tpu_torch.models import deepgaitv2 as DG
 from ugaitnet_tpu_torch.models.branches import (Conv2DBranch, Conv3DBranch,
                                                 Dense, _act, draw_seed,
                                                 keyed_dropout)
@@ -51,7 +58,7 @@ from ugaitnet_tpu_torch.ops.collectives import (copy_in, gather_parts,
                                                 reduce_out)
 from ugaitnet_tpu_torch.ops.preprocess import frames_to_planes
 
-BRANCH_KINDS = ("gaitset", "conv2d", "conv3d")
+BRANCH_KINDS = ("gaitset", "conv2d", "conv3d", "deepgaitv2")
 
 
 def compute_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -79,6 +86,11 @@ def make_branch(cfg: BranchConfig, dtype: torch.dtype,
             cfg.in_channels, ndense_units=cfg.ndense_units,
             activation=cfg.activation, leaky_alpha=cfg.leaky_alpha,
             dtype=dtype, generator=generator)
+    if cfg.kind == "deepgaitv2":
+        return DG.DeepGaitV2Branch(
+            cfg.in_channels, channels=cfg.stage_channels,
+            blocks=cfg.stage_blocks, hpp_bins=cfg.hpp_bins,
+            part_dim=cfg.part_dim, dtype=dtype, generator=generator)
     raise ValueError(f"unknown branch kind: {cfg.kind}")
 
 
@@ -94,8 +106,16 @@ def _check_supported(cfg: ModelConfig, mesh) -> None:
     for b in cfg.branches:
         if b.kind not in BRANCH_KINDS:
             raise ValueError(f"unknown branch kind: {b.kind}")
+    if any(b.kind == "deepgaitv2" for b in cfg.branches) and (
+            cfg.multimodal or cfg.extra_dense or cfg.aux_losses):
+        raise ValueError("a deepgaitv2 branch is a model of its own: one "
+                         "branch, its BNNeck id head, no extra_dense or aux "
+                         "heads")
+    if cfg.remat:
+        DG.refuse(cfg, "remat")
     if not cfg.seq_axis:
         return
+    DG.refuse(cfg, "sequence parallelism")
     for b in cfg.branches:
         if b.kind != "gaitset":
             # conv2d reads the T*C plane stack densely and conv3d convolves
@@ -111,7 +131,7 @@ def _check_supported(cfg: ModelConfig, mesh) -> None:
 
 def branch_width(b: BranchConfig) -> int:
     """Width of a branch's per-sample flattened embedding."""
-    if b.kind == "gaitset":
+    if b.kind in ("gaitset", "deepgaitv2"):
         return b.num_parts * b.part_dim
     return b.ndense_units
 
@@ -208,7 +228,11 @@ def _head_forward(cfg: ModelConfig, embeddings: Sequence[torch.Tensor],
     flat = head_in.reshape(batch, -1)
     out["flatten"] = flat
 
-    if net.classprob is not None:
+    if net.bnneck is not None:
+        out["bnneck"], logits = net.bnneck(sig, train, key)
+        out["classprob_logits"] = logits                  # (B, P, classes)
+        out["classprob"] = torch.softmax(logits, dim=-1)
+    elif net.classprob is not None:
         logits = _id_logits(net.classprob, flat, "flatten" in strips,
                             tp).to(torch.float32)
         out["classprob_logits"] = logits
@@ -249,9 +273,13 @@ class UGaitNet(nn.Module):
             self.extra_dense = Dense(config.signature_dim, width, dt, gen)
             self.dropcode_seed = draw_seed(gen)
             flat_dim = width
-        self.classprob = None
+        self.classprob = self.bnneck = None
         self.tp = None
-        if config.nclasses > 0:
+        if config.bnneck_scale > 0:
+            self.bnneck = DG.BNNeck(config.signature_parts, flat_dim,
+                                    config.nclasses, config.bnneck_scale, dt,
+                                    gen)
+        elif config.nclasses > 0:
             self.classprob = Dense(config.signature_parts * flat_dim,
                                    config.nclasses, dt, gen)
             if config.aux_losses:
@@ -328,6 +356,7 @@ class UGaitHead(nn.Module):
         if net.extra_dense is not None:
             self.dropcode_seed = net.dropcode_seed
         self.classprob = net.classprob
+        self.bnneck = net.bnneck
         if net.classprob is not None and net.config.aux_losses:
             for b in net.config.branches:
                 name = f"classprob_{b.modality}"

@@ -47,6 +47,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ugaitnet_tpu_torch.core.config import BranchConfig, ModelConfig
+from ugaitnet_tpu_torch.models import deepgaitv2 as DG
 from ugaitnet_tpu_torch.models.branches import CONV3D_SPEC, _act
 from ugaitnet_tpu_torch.models.gaitset import A_CONVS, B_CONVS
 from ugaitnet_tpu_torch.ops import fusion
@@ -419,6 +420,7 @@ def quantize_model_params(model: nn.Module, mcfg: ModelConfig,
     calib_volumes: one representative (B, T, H, W, C_i) batch per branch
     (arrays or tensors)."""
     dev = model.device
+    DG.refuse(mcfg, "int8")
     if mcfg.has_moe:
         raise ValueError("the int8 encode has the per-part projection only, "
                          "as the JAX package's; an MoE part projection "

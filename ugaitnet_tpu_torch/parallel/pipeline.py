@@ -39,6 +39,7 @@ from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ugaitnet_tpu_torch.models import deepgaitv2 as DG
 from ugaitnet_tpu_torch.models.network import UGaitHead, branch_input
 
 
@@ -76,6 +77,7 @@ def add_branch_grads(params, grads, device: torch.device) -> None:
 
 
 def _check_supported(mcfg, devices) -> None:
+    DG.refuse(mcfg, "pipeline parallelism")
     for b in mcfg.branches:
         if b.kind == "conv2d" and b.dropout > 0:
             raise ValueError(

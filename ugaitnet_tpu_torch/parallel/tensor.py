@@ -49,6 +49,7 @@ from typing import Any, Optional, Sequence
 import torch
 
 from ugaitnet_tpu_torch.core.checkpoint import ShardSpec
+from ugaitnet_tpu_torch.models import deepgaitv2 as DG
 from ugaitnet_tpu_torch.ops.collectives import MODEL_AXIS
 from ugaitnet_tpu_torch.parallel.sharding import (DATA_AXIS, Mesh,
                                                   build_mesh,
@@ -104,6 +105,7 @@ def place_tp_model(model, mesh: Mesh):
     """Keep this rank's shard of every split leaf, in place (before the
     optimizer is made), and wire the branches and the head to the model
     group."""
+    DG.refuse(model.config, "tensor parallelism")
     mp, j = mesh.size(MODEL_AXIS), mesh.index(MODEL_AXIS)
     group = mesh.group(MODEL_AXIS)
     ranges = {}

@@ -4,7 +4,9 @@ Port of ``ugaitnet_tpu/train/train_step.py``:
 
   loss = w_ver * triplet(signature)
        + w_id  * CE(classprob_logits)   [label smoothing; or focal on
-                                         classprob]
+                                         classprob; the BNNeck head's
+                                         per-part logits: the mean over
+                                         rows and parts]
        + w_aux * CE(per-branch aux heads)
        + moe_aux_weight * MoE load-balance loss  [MoE part projections]
        + reg (Keras kernel_regularizer terms)
@@ -42,6 +44,7 @@ import numpy as np
 import torch
 
 from ugaitnet_tpu_torch.core.config import ModelConfig, TrainConfig
+from ugaitnet_tpu_torch.models import deepgaitv2 as DG
 from ugaitnet_tpu_torch.models.branches import ShardKey, fold_key
 from ugaitnet_tpu_torch.models.network import UGaitNet, tp_strips
 from ugaitnet_tpu_torch.obsv import spans
@@ -97,6 +100,9 @@ class _Float32Optimizer(torch.optim.Optimizer):
                             p, memory_format=torch.preserve_format)
                 yield group, p, p.grad, st
 
+
+# OpenGait's SGD weight decay (configs/deepgaitv2/*.yaml: 0.0005)
+SGD_WEIGHT_DECAY = 5e-4
 
 # optax's Adam-family defaults, as inject_hyperparams holds them (float32)
 B1, B2 = np.float32(0.9), np.float32(0.999)
@@ -204,7 +210,12 @@ def make_optimizer(cfg: TrainConfig, params) -> torch.optim.Optimizer:
     * ``adam_keras``: Keras's form (``KerasAdam``);
     * ``amsgrad``: ``optax.amsgrad`` (``OptaxAmsgrad``);
     * ``adamw``: ``optax.adamw`` at weight_decay 1e-4 (``OptaxAdamW``);
-    * ``sgd``: momentum ``cfg.momentum`` with Keras's decay (``KerasSGD``).
+    * ``sgd``: momentum ``cfg.momentum`` with Keras's decay (``KerasSGD``);
+    * ``sgd_opengait`` (port only): ``torch.optim.SGD`` with momentum
+      ``cfg.momentum`` and coupled weight decay ``SGD_WEIGHT_DECAY`` on every
+      parameter, OpenGait's solver in the published DeepGaitV2 runs (the
+      decay is fixed, as adamw's is, since ``TrainConfig`` keeps the JAX
+      package's fields).
     """
     name = cfg.optimizer.lower()
     if name == "adam":
@@ -218,6 +229,9 @@ def make_optimizer(cfg: TrainConfig, params) -> torch.optim.Optimizer:
         return OptaxAdamW(params, cfg.lr)
     if name == "sgd":
         return KerasSGD(params, cfg.lr, momentum=cfg.momentum)
+    if name == "sgd_opengait":
+        return torch.optim.SGD(params, lr=_f32(cfg.lr), momentum=cfg.momentum,
+                               weight_decay=SGD_WEIGHT_DECAY)
     raise ValueError(f"unknown optimizer {cfg.optimizer}")
 
 
@@ -297,6 +311,9 @@ def losses_from_outputs(out: Dict[str, object], model: UGaitNet,
     if mcfg.nclasses > 0 and not tcfg.only_triplet:
         onehot = torch.nn.functional.one_hot(
             batch.labels.long(), mcfg.nclasses).to(torch.float32)
+        if "bnneck" in out:
+            # per-part logits (B, P, classes): the mean over rows and parts
+            onehot = onehot[:, None, :]
         if tcfg.use_focal:
             # on the softmax probabilities, as the JAX step has it
             l_id = L.sigmoid_focal_crossentropy(out["classprob"], onehot)
@@ -365,6 +382,8 @@ def make_train_step(mcfg: ModelConfig, tcfg: TrainConfig, mesh=None,
     ``train.backward`` (with the gradient average) and ``train.update``:
     the host's time to enqueue each."""
     group = None if mesh is None else mesh.group(DATA_AXIS)
+    if mesh is not None and global_batch:
+        DG.refuse(mcfg, "global data parallelism")
 
     def step(state: TrainState, batch: Batch):
         sid = key = state.step
