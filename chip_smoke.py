@@ -73,6 +73,16 @@ channels (32, 64, 128), part_dim 256, 62 parts, sign_max merge, 74 classes):
      must read above it; two launches bitwise; kernel, plain (float32) and
      cuDNN (``convolution_backward``, dW and db alone) times against the
      bound;
+ 1f. the 3D CNN's input gradient (``csrc/conv3d_dgrad.cu``, float32 FFMA)
+     at the cell's conv1-conv5 (N = 120, the shapes past conv0, alike in
+     both branches): cuDNN's dx alone (``convolution_backward``), the
+     kernel's and the plain version's times, each branch's launches timed
+     on its own tensors and summed, against the bound, which set
+     the shape rule (``conv3d_dgrad.shape_rule``; each conv it takes must
+     beat cuDNN); at those convs dx against the float64 plain version
+     within DGRAD_REL of max, computed into a block a NaN-filled tensor
+     left, three planted faults (a tap shifted, a phase skipped, unread
+     rows left unzeroed) that must read above it, and two launches bitwise;
   2. embed: preprocess_batch on raw int16 OF / uint8 gray at B = 128, then
      the forward, in float32 and bfloat16 (inputs perturbed every batch);
      the bf16 forward launches the conv kernel exactly 4 times (a_conv2
@@ -173,7 +183,9 @@ channels (32, 64, 128), part_dim 256, 62 parts, sign_max merge, 74 classes):
      card vs CPU within 1e-6 relative, and
      the int8 encode's cosine to float32 >= 0.99 on 128 clips; the 3D
      CNN's steps launch the first-conv weight-gradient kernel (1e) exactly
-     twice a step (conv0 of each branch), the 2D CNN's never;
+     twice a step (conv0 of each branch) and the input-gradient kernel
+     (1f) twice a step for each conv past conv0 the shape rule takes, the
+     2D CNN's neither;
  10. the rest of the model and loss surface at the flagship's width
      (deterministic cuDNN): casenet C with postriplet 2, aux heads and
      dropcode 0.4, 3 Adam steps at B = 120 through the triplet kernel
@@ -471,6 +483,16 @@ WGRAD_FAULTS = ("tap shifted", "slab skipped", "bias left out")
 WGRAD_CELL = {"of": 2, "gray": 1}
 WGRAD_SHAPE = (120, 25, 60, 60, 64)         # N, T, H, W, Co
 WGRAD_KERNEL, WGRAD_STRIDE = (3, 5, 5), (1, 2, 2)
+DGRAD_SRC = "ugaitnet_tpu_torch/csrc/conv3d_dgrad.cu"
+# phase 1f: the input gradient against float64, per tensor: max |kernel -
+# float64| <= DGRAD_REL * max |float64|.  Each dx element is a float32 sum
+# of Co x (its phase's taps) products, at most 6,912 at conv2 (~1e-6
+# expected); a tap shifted, a phase skipped or unread rows left unzeroed
+# read 1e-1 and more
+DGRAD_REL = 1e-5
+DGRAD_FAULTS = ("tap shifted", "phase skipped", "unread rows left unzeroed")
+# the cell's batch (40 clips x expand 3) and clip (T, H, W) at the branch
+DGRAD_N, DGRAD_CLIP = 120, (25, 60, 60)
 PEAK_BF16 = 989e12              # dense bf16 tensor-core FLOP/s
 # the conv kernel (and mm_fwd) against its plain version on the same
 # inputs, per element: |kernel - plain| <= ulp(plain) + CONV_SUM_REL * S,
@@ -1528,6 +1550,150 @@ def wgrad_phase(card):
           f"({out['share_of_bound']:.1%}); {out['launches']} launches; "
           f"phase 1e: {out['phase_s']:.1f} s [{card}]")
     return out
+
+
+def dgrad_phase(card):
+    """1f. The 3D CNN's input gradients at the cell (N = 120, the shapes
+    past conv0, alike in both branches): at conv1-conv5, each branch's dx
+    by cuDNN alone, the hand kernel and its plain version, each timed on
+    its own tensors, which set the shape rule (``conv3d_dgrad.shape_rule``);
+    at the convs the rule takes, the kernel against float64 in memory left
+    dirty, planted faults, a bitwise repeat (on the OF branch's tensors)."""
+    from ugaitnet_tpu_torch.models.branches import CONV3D_SPEC
+    from ugaitnet_tpu_torch.ops.cuda import conv3d_dgrad as CD
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(19)
+    t_phase = time.perf_counter()
+    CD.launches = 0
+    out = {"by_conv": {}}
+    ci, k0, s0 = CONV3D_SPEC[0]
+    size = tuple((a - k) // st + 1 for a, k, st in zip(DGRAD_CLIP, k0, s0))
+    for i, (co, kern, stride) in enumerate(CONV3D_SPEC[1:], 1):
+        name = f"conv{i}"
+        outs = tuple((a - k) // st + 1 for a, k, st in zip(size, kern,
+                                                           stride))
+        x = torch.empty((DGRAD_N, ci, *size), device=dev)   # its shape
+        r = {"x": [DGRAD_N, ci, *size], "co": co, "kernel": list(kern),
+             "stride": list(stride),
+             "rule": CD.shape_rule((DGRAD_N, ci, *size)), "by_branch": {}}
+        for mod in MODS:
+            gy = torch.randn((DGRAD_N, co, *outs), device=dev, generator=gen)
+            wt = torch.randn((co, ci, *kern), device=dev, generator=gen)
+            r["by_branch"][mod] = {
+                "ms": cuda_ms(lambda: CD.conv3d_dgrad(gy, wt, size, stride),
+                              10, 2),
+                "library_ms": cuda_ms(lambda: dgrad_cudnn(gy, x, wt, stride),
+                                      10, 2),
+                "plain_ms": cuda_ms(
+                    lambda: CD.dgrad_plain(gy, wt, size, stride), 3, 1)}
+            if mod == MODS[0]:
+                first = gy, wt
+            del gy, wt
+        for k in ("ms", "library_ms", "plain_ms"):      # OF + gray
+            r[k] = sum(v[k] for v in r["by_branch"].values())
+        r["bound_ms"], r["bound_by"] = bound(
+            4 * len(MODS) * (DGRAD_N * co * math.prod(outs)
+                             + co * ci * math.prod(kern) + x.numel()),
+            2 * len(MODS) * DGRAD_N * math.prod(outs) * co * ci
+            * math.prod(kern))
+        r["share_of_bound"] = r["bound_ms"] / r["ms"]
+        r["factor_to_library"] = r["ms"] / r["library_ms"]
+        line = (f"conv3d_dgrad {name} (N {DGRAD_N}, Ci {ci}, "
+                f"{'x'.join(map(str, size))} -> {'x'.join(map(str, outs))}, "
+                f"Co {co}, stride {'x'.join(map(str, stride))}), "
+                + " + ".join(mod for mod in r["by_branch"])
+                + ": kernel " + " + ".join(
+                    f"{v['ms']:.4f}" for v in r["by_branch"].values())
+                + " ms, cuDNN dx alone " + " + ".join(
+                    f"{v['library_ms']:.4f}" for v in r["by_branch"].values())
+                + f" ms ({r['factor_to_library']:.4f}x of it), plain "
+                + " + ".join(f"{v['plain_ms']:.4f}"
+                             for v in r["by_branch"].values())
+                + f" ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}; "
+                f"{r['share_of_bound']:.1%} of it); the rule "
+                f"{'takes' if r['rule'] else 'leaves'} it")
+        if r["rule"]:
+            gy, wt = first
+
+            def hand():
+                return CD.conv3d_dgrad(gy, wt, size, stride)
+            ref = CD.dgrad_plain(gy.double(), wt.double(), size, stride)
+            # memory left dirty: dx takes the block of a NaN-filled tensor
+            # of its size, freed just before
+            junk = torch.full_like(x, float("nan"))
+            ptr = junk.data_ptr()
+            del junk
+            dx = hand()
+            dx2 = hand()
+            # positions no output reads: past each extent's reach
+            reach = [st * (o - 1) + k for o, k, st in zip(outs, kern,
+                                                          stride)]
+            stale = dx.clone()
+            stale[:, :, reach[0]:] = stale[:, :, :, reach[1]:] = \
+                stale[..., reach[2]:] = ref.abs().max()
+            skipped = dx.clone()
+            skipped[:, :, stride[0] - 1::stride[0], stride[1] - 1::stride[1],
+                    stride[2] - 1::stride[2]] = 0
+            unread = reach != list(size)
+            r.update({
+                "max_rel_err": rel_err(dx.double(), ref),
+                "dirty_block_reused": dx.data_ptr() == ptr,
+                "bitwise": bool(torch.equal(dx, dx2)),
+                "cudnn_rel_err": rel_err(
+                    dgrad_cudnn(gy, x, wt, stride).double(), ref),
+                "max_abs_err": float((dx.double() - ref).abs().max()),
+                "faults": {
+                    "tap shifted": rel_err(dx[..., 1:].double(),
+                                           ref[..., :-1]),
+                    "phase skipped": rel_err(skipped.double(), ref),
+                    "unread rows left unzeroed": (
+                        rel_err(stale.double(), ref) if unread else None)}})
+            del ref, dx, dx2, stale, skipped, gy, wt
+            line += (f"; max rel err {r['max_rel_err']:.2e} (cuDNN "
+                     f"{r['cudnn_rel_err']:.2e}; dx in a dirty block "
+                     f"{r['dirty_block_reused']}) <= {DGRAD_REL}; planted "
+                     f"faults " + ", ".join(
+                         f"{f} {v:.2e}" for f, v in r["faults"].items()
+                         if v is not None)
+                     + f" > {DGRAD_REL}; bitwise {r['bitwise']}")
+        print(line + f" [{card}]")
+        if r["rule"]:
+            check(r["max_rel_err"] <= DGRAD_REL,
+                  f"conv3d_dgrad {name}: kernel vs float64")
+            check(r["bitwise"], f"conv3d_dgrad {name}: two launches differ")
+            check(all(v > DGRAD_REL for v in r["faults"].values()
+                      if v is not None),
+                  f"conv3d_dgrad {name}: a planted fault reads under the "
+                  f"limit")
+            check(r["ms"] < r["library_ms"], f"conv3d_dgrad {name}: the "
+                  f"rule takes a conv where cuDNN is faster")
+        out["by_conv"][name] = r
+        del x, first
+        torch.cuda.empty_cache()
+        ci, size = co, outs
+    taken = [v for v in out["by_conv"].values() if v["rule"]]
+    for k in ("ms", "plain_ms", "library_ms", "bound_ms"):
+        out[k] = sum(v[k] for v in taken)
+    out["max_abs_err"] = max(v["max_abs_err"] for v in taken)
+    out["bound_by"] = taken[0]["bound_by"]
+    out["share_of_bound"] = out["bound_ms"] / out["ms"]
+    out["factor_to_library"] = out["ms"] / out["library_ms"]
+    out["launches"] = CD.launches
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"conv3d_dgrad of + gray at the convs the rule takes "
+          f"({', '.join(k for k, v in out['by_conv'].items() if v['rule'])}"
+          f"): kernel {out['ms']:.4f} ms, cuDNN {out['library_ms']:.4f} ms, "
+          f"bound {out['bound_ms']:.4f} ms ({out['share_of_bound']:.1%}); "
+          f"{out['launches']} launches; phase 1f: {out['phase_s']:.1f} s "
+          f"[{card}]")
+    return out
+
+
+def dgrad_cudnn(gy, x, wt, stride):
+    """cuDNN's dx alone of the VALID conv of x (its shape) with wt."""
+    return torch.ops.aten.convolution_backward(
+        gy, x, wt, None, list(stride), [0, 0, 0], [1, 1, 1], False,
+        [0, 0, 0], 1, [True, False, False])[0]
 
 
 def tail_vs_plain_step(mcfg, tcfg, before, batch):
@@ -2854,6 +3020,18 @@ def int8_phase(card, sets, gallery_dir, probe_dir, experdir, serve_res,
 BRANCH_STEPS = 3
 
 
+def dgrad_convs(spec, rule, n=DGRAD_N, ci=2, clip=DGRAD_CLIP):
+    """How many convs of a 3D CNN branch past its first (whose input is
+    data) the input-gradient rule takes, at n rows of the clip's shape."""
+    size, taken = clip, 0
+    for i, (co, kern, stride) in enumerate(spec):
+        taken += i > 0 and rule((n, ci, *size))
+        size = tuple((a - k) // st + 1 for a, k, st in zip(size, kern,
+                                                           stride))
+        ci = co
+    return taken
+
+
 def branch_phase(card):
     """9. The train CLI's --no-gaitset (2D CNN) and --no-gaitset --use3d
     (3D CNN) nets at full width: forward card vs CPU, Adam steps, the last
@@ -2862,7 +3040,9 @@ def branch_phase(card):
     from ugaitnet_tpu_torch.cli import train as cli_train
     from ugaitnet_tpu_torch.core.config import DataConfig
     from ugaitnet_tpu_torch.data.pipeline import preprocess_batch
+    from ugaitnet_tpu_torch.models.branches import CONV3D_SPEC
     from ugaitnet_tpu_torch.models.network import UGaitNet
+    from ugaitnet_tpu_torch.ops.cuda import conv3d_dgrad as CD
     from ugaitnet_tpu_torch.ops.cuda import conv3d_wgrad as CW
     from ugaitnet_tpu_torch.ops.quantize import (encode_int8,
                                                  quantize_model_params)
@@ -2916,7 +3096,7 @@ def branch_phase(card):
         raw = raw_batch(40, 8, seed=12)
         gen = torch.Generator().manual_seed(0)
         step_ms, losses, kstore = [], [], {}
-        CW.launches = 0
+        CW.launches = CD.launches = 0
         for i in range(BRANCH_STEPS):
             r = dict(raw)
             r["raw_of"] = raw["raw_of"] ^ i
@@ -2943,6 +3123,15 @@ def branch_phase(card):
               f"{CW.launches} (expected {want}) [{card}]")
         check(CW.launches == want, f"{name}: conv3d_wgrad launched "
               f"{CW.launches}x in {BRANCH_STEPS} steps, expected {want}")
+        # and the convs past conv0 that the shape rule takes, their input
+        # gradients from the hand kernel
+        res["dgrad_launches"] = CD.launches
+        want = 2 * BRANCH_STEPS * dgrad_convs(CONV3D_SPEC, CD.shape_rule) \
+            if name == "conv3d" else 0
+        print(f"{name}: conv3d_dgrad launches in {BRANCH_STEPS} steps "
+              f"{CD.launches} (expected {want}) [{card}]")
+        check(CD.launches == want, f"{name}: conv3d_dgrad launched "
+              f"{CD.launches}x in {BRANCH_STEPS} steps, expected {want}")
         check(tuple(v[0].shape)[0] == 120, "B = 120")
         check(all(np.isfinite(x) for m in losses for x in m.values()),
               f"{name} losses {losses}")
@@ -5508,7 +5697,7 @@ def main():
     # one nvcc per source, all started together, then load them
     from concurrent.futures import ThreadPoolExecutor
     sources = ("triplet_kernel", "stage_tail", "conv3x3", "probes",
-               "conv3d_wgrad")
+               "conv3d_wgrad", "conv3d_dgrad")
     with ThreadPoolExecutor(len(sources)) as pool:
         list(pool.map(build.build, sources))
     for name in sources:
@@ -5649,6 +5838,9 @@ def main():
 
     # ---- 1e. the 3D CNN's first-conv weight gradient vs float64 -----------
     wgrad_res = wgrad_phase(card)
+
+    # ---- 1f. the 3D CNN's input gradients vs cuDNN and float64 -----------
+    dgrad_res = dgrad_phase(card)
 
     # ---- full-width flagship ----------------------------------------------
     dcfg = DataConfig()
@@ -6106,6 +6298,21 @@ def main():
             "ms", "plain_ms", "bound_ms", "library_ms", "share_of_bound",
             "factor_to_library", "max_rel_err")}
             for k, v in wgrad_res["by_shape"].items()}})
+    # the 3D CNN's input gradient: the convs the rule takes, both branches
+    # (each conv under "by_conv"); launches of phase 9's 3D CNN steps
+    dg3 = branch_res["conv3d"]["dgrad_launches"]
+    kernels.append({
+        "name": "conv3d_dgrad", "route": "cuda", "source": DGRAD_SRC,
+        "replaces": None, "launches": dg3,
+        "launches_by_path": {"branch_phase_3d_steps": dg3,
+                             "dgrad_phase": dgrad_res["launches"]},
+        **{k: dgrad_res[k] for k in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "share_of_bound", "factor_to_library")},
+        "by_conv": {k: {f: v.get(f) for f in (
+            "ms", "plain_ms", "bound_ms", "library_ms", "share_of_bound",
+            "factor_to_library", "max_rel_err", "rule")}
+            for k, v in dgrad_res["by_conv"].items()}})
     print(json.dumps({"card": card, "embed_ms_per_batch": embed,
                       "train_step_ms": train_ms,
                       "train_step_bf16_ms": bf_train_ms,
@@ -6128,6 +6335,7 @@ def main():
                       "stage_tail": tail_res,
                       "conv3x3": conv_res, "probes": probe_res,
                       "conv3d_wgrad": wgrad_res,
+                      "conv3d_dgrad": dgrad_res,
                       "embed_bf16_route": embed_route,
                       "train_tail_step": tail_step,
                       "train_tail_ab": tail_ab}))

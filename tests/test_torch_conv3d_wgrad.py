@@ -27,6 +27,7 @@ from ugaitnet_tpu_torch.core.config import BranchConfig
 from ugaitnet_tpu_torch.models.branches import Conv2DBranch, Conv3DBranch
 from ugaitnet_tpu_torch.obsv import spans
 from ugaitnet_tpu_torch.ops import quantize as Q
+from ugaitnet_tpu_torch.ops.cuda import conv3d_route as R
 from ugaitnet_tpu_torch.ops.cuda import conv3d_wgrad as CW
 
 LIMIT = 1e-5
@@ -95,12 +96,12 @@ def test_refusals():
 def recorder(monkeypatch):
     """The weight shapes of the convs that take the hand path."""
     seen = []
-    conv3d = CW.conv3d
+    conv3d = R.conv3d
 
-    def record(x, w, b, stride):
+    def record(x, w, b, stride, hand):
         seen.append(tuple(w.shape))
-        return conv3d(x, w, b, stride)
-    monkeypatch.setattr(CW, "conv3d", record)
+        return conv3d(x, w, b, stride, hand)
+    monkeypatch.setattr(R, "conv3d", record)
     return seen
 
 
@@ -198,7 +199,8 @@ def test_input_gradient_when_asked(cpu_rule):
     x32 = x.float().requires_grad_()
     w = torch.randn((7, 3, 2, 3, 3), requires_grad=True)
     b = torch.randn(7, requires_grad=True)
-    CW.conv3d(x32, w, b, (2, 1, 3)).square().sum().backward()
+    R.conv3d(x32, w, b, (2, 1, 3),
+             R.hand_grads(x32, w, b, 0)).square().sum().backward()
     got = (x32.grad, w.grad, b.grad)
     x32.grad = w.grad = b.grad = None
     F.conv3d(x32, w, b, stride=(2, 1, 3)).square().sum().backward()

@@ -40,6 +40,7 @@ from ugaitnet_tpu_torch.eval.encode import encode_dataset
 from ugaitnet_tpu_torch.models import deepgaitv2 as DG
 from ugaitnet_tpu_torch.models.network import UGaitNet
 from ugaitnet_tpu_torch.obsv import spans
+from ugaitnet_tpu_torch.ops.cuda import conv3d_route
 from ugaitnet_tpu_torch.ops.cuda import conv3d_wgrad as CW
 from ugaitnet_tpu_torch.train import train_step as TS
 
@@ -305,16 +306,16 @@ def test_benchmark_configs_build_what_they_built(name):
 
 def test_hand_wgrad_takes_cnn3d_conv0_and_nothing_of_deepgaitv2(
         monkeypatch):
-    """``Conv`` sends a conv to ``CW.conv3d`` where ``engages`` says so; with
-    the rule read on CPU tensors (``CW.fits``), the 3D CNN's ``conv0`` of
-    each branch goes there in float32 training, and no conv of DeepGaitV2
-    does, in float32 or bf16 (its convs are padded and bias-free, and its
-    1x1x1 shortcuts would otherwise fit)."""
+    """``Conv`` sends a conv to ``conv3d_route.conv3d`` where ``engages``
+    says so; with the rule read on CPU tensors (``CW.fits``), the 3D CNN's
+    ``conv0`` of each branch goes there in float32 training, and no conv
+    of DeepGaitV2 does, in float32 or bf16 (its convs are padded and
+    bias-free, and its 1x1x1 shortcuts would otherwise fit)."""
     monkeypatch.setattr(CW, "engages", CW.fits)
     taken = []
-    real = CW.conv3d
-    monkeypatch.setattr(CW, "conv3d", lambda x, w, b, s: (
-        taken.append(tuple(w.shape)), real(x, w, b, s))[1])
+    real = conv3d_route.conv3d
+    monkeypatch.setattr(conv3d_route, "conv3d", lambda x, w, b, s, hand: (
+        taken.append(tuple(w.shape)), real(x, w, b, s, hand))[1])
     with open(os.path.join(REPO, "portbench", "configs",
                            "cnn3d_of_gray.json")) as f:
         cnn = UGaitNet(bench_model_config(json.load(f)), device="cpu")

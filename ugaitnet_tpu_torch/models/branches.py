@@ -44,7 +44,7 @@ from torch import nn
 
 from ugaitnet_tpu_torch.core.config import FRAME_H, FRAME_W
 from ugaitnet_tpu_torch.models.gaitset import glorot_
-from ugaitnet_tpu_torch.ops.cuda import conv3d_wgrad as CW
+from ugaitnet_tpu_torch.ops.cuda import conv3d_route
 from ugaitnet_tpu_torch.ops.pooling import max_pool_2x2
 
 # (filters, kernel, strides), mj_uwyhNets_ba.py:347-363; shared with the
@@ -126,9 +126,12 @@ class Conv(nn.Module):
     bias unless ``padding`` (zeros on each side of every spatial dim) or
     ``bias=False`` say otherwise (DeepGaitV2's convs: padding 1, no bias).
     ``he``: he-uniform kernel (the ``code`` layer), else glorot.  A VALID
-    3D conv with few taps a output channel, trained in float32 on a card,
-    takes its weight and bias gradients from the hand kernel
-    (``ops/cuda/conv3d_wgrad.py:engages``: the first conv of the 3D CNN)."""
+    3D conv with a bias trained in float32 on a card goes through
+    ``conv3d_route.conv3d`` where a hand gradient kernel's rule takes it
+    (``conv3d_route.hand_grads``): its weight and bias gradients with few
+    taps a output channel (``ops/cuda/conv3d_wgrad.py:engages``: the first
+    conv of the 3D CNN), its input gradient where its input needs one and
+    is large enough (``ops/cuda/conv3d_dgrad.py:engages``: conv1-conv4)."""
 
     def __init__(self, ci: int, co: int, kernel: Sequence[int],
                  strides: Sequence[int], dtype: torch.dtype,
@@ -151,8 +154,9 @@ class Conv(nn.Module):
         dt = self.dtype
         x, w = x.to(dt), self.weight.to(dt)
         b = None if self.bias is None else self.bias.to(dt)
-        if self.padding == 0 and b is not None and CW.engages(x, w):
-            return CW.conv3d(x, w, b, self.strides)
+        hand = conv3d_route.hand_grads(x, w, b, self.padding)
+        if any(hand):
+            return conv3d_route.conv3d(x, w, b, self.strides, hand)
         conv = F.conv3d if w.ndim == 5 else F.conv2d
         return conv(x, w, b, stride=self.strides, padding=self.padding)
 

@@ -3,11 +3,10 @@ float32 kernel (``csrc/conv3d_wgrad.cu``, header note: design and bounds).
 
 cuDNN sends the weight gradient of the 3D CNN's first conv (few input
 channels: 2 optical-flow or 1 gray, 3 x 5 x 5 taps, stride 1 x 2 x 2) to a
-direct, grouped kernel far from the card's FFMA rate.  ``conv3d`` is the
-forward the branch calls instead of ``F.conv3d`` where ``engages`` says so:
-cuDNN's forward, and a backward whose dW and db come from the kernel (the
-input gradient, when the input needs one, from
-``torch.ops.aten.convolution_backward`` for dx alone).
+direct, grouped kernel far from the card's FFMA rate.  The autograd
+Function that routes each gradient of a conv is
+``ops/cuda/conv3d_route.py:conv3d``; ``engages`` says when its dW and db
+come from here.
 
 ``engages(x, weight)`` looks only at what the call can see: x on a card,
 and ``fits``: a 5-D weight, float32 tensors, grad mode on with the weight
@@ -31,7 +30,6 @@ import math
 from typing import Sequence, Tuple
 
 import torch
-import torch.nn.functional as F
 
 from ugaitnet_tpu_torch.obsv import spans
 
@@ -147,33 +145,3 @@ def engages(x: torch.Tensor, weight: torch.Tensor) -> bool:
     """Whether a conv of x with ``weight`` takes the hand weight gradient:
     on a card, where ``fits`` says so."""
     return x.is_cuda and fits(x, weight)
-
-
-class _Conv3d(torch.autograd.Function):
-    """cuDNN's forward; dW and db by ``conv3d_wgrad``, dx (when asked for)
-    by ``convolution_backward`` alone."""
-
-    @staticmethod
-    def forward(ctx, x, weight, bias, stride):
-        ctx.save_for_backward(x, weight)
-        ctx.stride = stride
-        return F.conv3d(x, weight, bias, stride=stride)
-
-    @staticmethod
-    @torch.autograd.function.once_differentiable
-    def backward(ctx, gy):
-        x, weight = ctx.saved_tensors
-        gx = None
-        if ctx.needs_input_grad[0]:
-            gx = torch.ops.aten.convolution_backward(
-                gy, x, weight, None, list(ctx.stride), [0, 0, 0], [1, 1, 1],
-                False, [0, 0, 0], 1, [True, False, False])[0]
-        dw, db = conv3d_wgrad(x, gy, weight.shape[2:], ctx.stride)
-        return gx, dw, db, None
-
-
-def conv3d(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
-           stride: Sequence[int]) -> torch.Tensor:
-    """``F.conv3d(x, weight, bias, stride=stride)`` (VALID), whose weight
-    and bias gradients come from the hand kernel."""
-    return _Conv3d.apply(x, weight, bias, tuple(stride))
