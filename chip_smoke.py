@@ -1,11 +1,16 @@
 """Drive the PyTorch port's main path on one CUDA card and hold its kernels
 against their plain PyTorch versions.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--phase 1c,1d | 13 | ...]
 
 Run from the repository root; it needs one CUDA card and nvcc, and exits
-non-zero without them.  It builds the kernels of ``ugaitnet_tpu_torch/csrc``
-and runs, at the full width of the flagship (two GaitSet branches at
+non-zero without them.  ``--phase`` names phases of the registry
+(``PHASES``: the phases below, and ``sets`` and ``batch``, which make phase
+5's sets and phase 12's batch): they run in the registry's order after the
+phases whose results they read, each of those announced by a line; with no
+``--phase``, every phase runs.  It builds the kernels of
+``ugaitnet_tpu_torch/csrc`` that the chosen phases launch and runs, at the
+full width of the flagship (two GaitSet branches at
 channels (32, 64, 128), part_dim 256, 62 parts, sign_max merge, 74 classes):
 
   1. kernels vs plain: the CUDA batch-all triplet forward and backward
@@ -288,7 +293,7 @@ channels (32, 64, 128), part_dim 256, 62 parts, sign_max merge, 74 classes):
      conv per element within its limit).  Prints the per-epoch train and
      validation losses, the fit's ms per step, the train and encode
      seconds and the phase's; writes each run's results under
-     ``chiprun_out/phase14/``.  Alone: ``python3 tools/chip_phase14.py``.
+     ``chiprun_out/phase14/``.
 
 Gradient limits scale with each case, and every run reads planted faults
 (a backward without the g^T term, with the negative role's sign flipped,
@@ -308,12 +313,15 @@ stage tails take the plain chain on the card only inside ``plain_tail()``
 (the comparison runs above).
 
 Prints the card (nvidia-smi name and power limit), one JSON line with every
-kernel's launches, error, times and bound, and as the last line
-{"ok": true, "device": {...}}.  Any failed check raises: exit code != 0.
+kernel's launches, error, times and bound (a partial run leaves out the
+kernels whose phase did not run, and each count whose phase did not run),
+and as the last line {"ok": true, "device": {...}}.  Any failed check raises: exit code != 0.
 TF32 is off for matmuls and convolutions throughout (parity), apart from
 the one forward of phase 4 that shows the card-vs-CPU limit would catch it.
 """
 
+import argparse
+import collections
 import contextlib
 import copy
 import dataclasses
@@ -329,6 +337,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -364,6 +373,9 @@ FAULTS = ("g^T dropped", "negative sign", "zeros")
 KNN_TIE_REL = 1e-4
 KNN_TIE_SHARE = 0.01
 MODS = ("of", "gray")
+# preprocess_batch's modalities, channels, scales and flow channels
+PREPROCESS = (MODS, (2, 1), (100.0, 1.0), 2)
+EMBED_ITERS = 10               # phase 2's timed forwards
 BUCKETS = (1, 8, 32, 128)
 
 # crash-resume: max |resumed - uninterrupted| per-epoch train loss (the JAX
@@ -479,10 +491,6 @@ WGRAD_SRC = "ugaitnet_tpu_torch/csrc/conv3d_wgrad.cu"
 # shifted, a slab skipped or the bias left out read 1e-2 and more
 WGRAD_REL = 1e-5
 WGRAD_FAULTS = ("tap shifted", "slab skipped", "bias left out")
-# the two first convs of the 3D CNN: input channels, and the shapes
-WGRAD_CELL = {"of": 2, "gray": 1}
-WGRAD_SHAPE = (120, 25, 60, 60, 64)         # N, T, H, W, Co
-WGRAD_KERNEL, WGRAD_STRIDE = (3, 5, 5), (1, 2, 2)
 DGRAD_SRC = "ugaitnet_tpu_torch/csrc/conv3d_dgrad.cu"
 # phase 1f: the input gradient against float64, per tensor: max |kernel -
 # float64| <= DGRAD_REL * max |float64|.  Each dx element is a float32 sum
@@ -491,8 +499,9 @@ DGRAD_SRC = "ugaitnet_tpu_torch/csrc/conv3d_dgrad.cu"
 # read 1e-1 and more
 DGRAD_REL = 1e-5
 DGRAD_FAULTS = ("tap shifted", "phase skipped", "unread rows left unzeroed")
-# the cell's batch (40 clips x expand 3) and clip (T, H, W) at the branch
-DGRAD_N, DGRAD_CLIP = 120, (25, 60, 60)
+# phases 1e, 1f and 9: the cell's batch (40 clips x expand 3), its clip (T,
+# H, W) at the 3D CNN branch and each branch's input channels
+CELL_N, CELL_CLIP, CELL_CI = 120, (25, 60, 60), {"of": 2, "gray": 1}
 PEAK_BF16 = 989e12              # dense bf16 tensor-core FLOP/s
 # the conv kernel (and mm_fwd) against its plain version on the same
 # inputs, per element: |kernel - plain| <= ulp(plain) + CONV_SUM_REL * S,
@@ -907,7 +916,7 @@ def tail_bytes(x, batch):
     return xb + ab + sb, 2 * xb + 2 * ab + 2 * sb
 
 
-def tail_phase(card):
+def tail_phase(ctx):
     """1b. The stage-tail kernels against the plain chain on the card:
     forward bitwise at the flagship's stage shapes (B = 120), the encode
     batch and the prototype's shapes (B = 128), ragged and all-tied clips,
@@ -915,6 +924,7 @@ def tail_phase(card):
     with three planted faults; times against the bytes bound."""
     from ugaitnet_tpu_torch.ops.cuda import stage_tail as ST
     from ugaitnet_tpu_torch.ops.pooling import stage_tail
+    card = ctx.card
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(11)
     f32, bf16 = torch.float32, torch.bfloat16
@@ -1159,7 +1169,7 @@ def conv_fault(x, w, fault):
     return y.to(torch.bfloat16)
 
 
-def conv_phase(card):
+def conv_phase(ctx):
     """1c. The conv kernel against its plain version on the card, per
     element within ulp + CONV_SUM_REL * S, at the flagship's a_conv6 and
     a_conv2 (seed-0 weights), their TP halves, the tiny flagship's shapes,
@@ -1170,6 +1180,7 @@ def conv_phase(card):
     from ugaitnet_tpu_torch.models.network import UGaitNet
     from ugaitnet_tpu_torch.ops.conv3x3 import conv3x3
     from ugaitnet_tpu_torch.ops.cuda import conv3x3 as CV
+    card = ctx.card
     dev = torch.device("cuda")
     bf16 = torch.bfloat16
     gen = torch.Generator(device=dev).manual_seed(12)
@@ -1397,11 +1408,12 @@ def scale2_readings(card, gen, pairs=3):
     return c
 
 
-def probe_phase(card):
+def probe_phase(ctx):
     """1d. mm_fwd against its plain version (ulp + CONV_SUM_REL * S) at
     the prototype's M and K, timed beside cuBLAS; scale2
     (``scale2_readings``)."""
     from ugaitnet_tpu_torch.ops.cuda import probes as PR
+    card = ctx.card
     dev = torch.device("cuda")
     bf16 = torch.bfloat16
     gen = torch.Generator(device=dev).manual_seed(13)
@@ -1460,240 +1472,267 @@ def probe_phase(card):
     return out
 
 
-def wgrad_phase(card):
-    """1e. The 3D CNN's first-conv weight gradient against float64 at its
-    two shapes, planted faults, bitwise repeat, times beside cuDNN's and
-    the plain version's."""
+GradCase = collections.namedtuple(
+    "GradCase", "name ci size co kern stride outs rule")
+
+
+def cell_convs(spec):
+    """Each conv of a 3D CNN branch at the cell: its index, each branch's
+    input channels, its input size (T, H, W), Co, kernel, stride and output
+    size."""
+    ci, size = CELL_CI, CELL_CLIP
+    for i, (co, kern, stride) in enumerate(spec):
+        outs = tuple((a - k) // st + 1 for a, k, st in zip(size, kern,
+                                                           stride))
+        yield i, ci, size, co, kern, stride, outs
+        ci, size = {m: co for m in ci}, outs
+
+
+def dgrad_convs(spec, rule, n=CELL_N):
+    """How many convs of a 3D CNN branch past its first (whose input is
+    data) the input-gradient rule takes, at n rows of the cell's clip."""
+    return sum(i > 0 and rule((n, ci["of"], *size))
+               for i, ci, size, *_ in cell_convs(spec))
+
+
+def cudnn_grads(gy, x, wt, stride, mask):
+    """cuDNN's (dx, dW, db) of the VALID conv of x with wt, those ``mask``
+    asks for (``convolution_backward``; x may hold only its shape)."""
+    return torch.ops.aten.convolution_backward(
+        gy, x, wt, [wt.shape[0]] if mask[2] else None, list(stride),
+        [0, 0, 0], [1, 1, 1], False, [0, 0, 0], 1, mask)
+
+
+# a 3D conv gradient kernel as grad_kernel_phase holds it: "by" keys the
+# results' per-conv entries; the readings "held" must lie within "rel",
+# "notes" (label, reading) print beside max rel err; "library" names what
+# cuDNN's time is of; "iters" gives cuda_ms's (iters, warmup) of each time;
+# "bias" is 1 where the kernel sums db too; "beats_cudnn": the rule takes
+# only convs where cuDNN loses; "module" counts the launches; cases() lists
+# GradCases; draw(gen, case, Ci) gives one branch's tensors, which hand,
+# plain, cudnn and verify (readings and "faults") take with the case
+GradKernel = collections.namedtuple(
+    "GradKernel", "name phase seed by rel held notes library iters bias "
+    "beats_cudnn module cases draw hand plain cudnn verify")
+
+
+def wgrad_kernel():
+    """1e. The 3D CNN's first-conv weight gradient (``csrc/conv3d_wgrad.cu``)
+    at the convs of at most MAX_TAPS taps (conv0 of each branch), checked
+    on each branch's tensors: dW and db against float64 with gy as autograd
+    hands it (NCDHW) and channels-last."""
+    from ugaitnet_tpu_torch.models.branches import CONV3D_SPEC
     from ugaitnet_tpu_torch.ops.cuda import conv3d_wgrad as CW
-    dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(17)
-    t_phase = time.perf_counter()
-    CW.launches = 0
-    n, t, h, w, co = WGRAD_SHAPE
-    kern, stride = WGRAD_KERNEL, WGRAD_STRIDE
-    out = {"by_shape": {}}
-    for name, ci in WGRAD_CELL.items():
-        x = torch.randn((n, t, h, w, ci), device=dev, generator=gen)
-        x = x.permute(0, 4, 1, 2, 3)                  # the NDHWC view
-        outs = CW.out_size((t, h, w), kern, stride)
-        gy = torch.randn((n, co, *outs), device=dev, generator=gen)
-        wt = torch.empty((co, ci, *kern), device=dev)
-        rw, rb = CW.wgrad_plain(x.double(), gy.double(), kern, stride)
+
+    def cases():
+        return [GradCase(mod, {mod: n}, size, co, kern, stride, outs, True)
+                for _, ci, size, co, kern, stride, outs in cell_convs(
+                    CONV3D_SPEC)
+                for mod, n in ci.items()
+                if n * math.prod(kern) <= CW.MAX_TAPS]
+
+    def draw(gen, c, ci):
+        x = torch.randn((CELL_N, *c.size, ci), device="cuda", generator=gen)
+        gy = torch.randn((CELL_N, c.co, *c.outs), device="cuda",
+                         generator=gen)
+        return (x.permute(0, 4, 1, 2, 3), gy,        # the NDHWC view
+                torch.empty((c.co, ci, *c.kern), device="cuda"))
+
+    def hand(t, c, gy=None):
+        return CW.conv3d_wgrad(t[0], t[1] if gy is None else gy, c.kern,
+                               c.stride)
+
+    def cudnn(t, c):
+        return cudnn_grads(t[1], t[0], t[2], c.stride, [False, True, True])
+
+    def verify(t, c):
+        rw, rb = CW.wgrad_plain(t[0].double(), t[1].double(), c.kern,
+                                c.stride)
 
         def reading(dw, db):
             return max(rel_err(dw.double(), rw), rel_err(db.double(), rb))
-
-        def cudnn():
-            return torch.ops.aten.convolution_backward(
-                gy, x, wt, [co], list(stride), [0, 0, 0], [1, 1, 1], False,
-                [0, 0, 0], 1, [False, True, True])
-        dw, db = CW.conv3d_wgrad(x, gy, kern, stride)
-        dw2, db2 = CW.conv3d_wgrad(x, gy, kern, stride)
-        gcl = gy.contiguous(memory_format=torch.channels_last_3d)
-        gz = gy.clone()
+        dw, db = hand(t, c)
+        dw2, db2 = hand(t, c)
+        gz = t[1].clone()
         gz[7, :, 11] = 0                              # one (n, t) slab
-        r = {"max_rel_err": reading(dw, db),
-             "channels_last_gy": reading(*CW.conv3d_wgrad(x, gcl, kern,
-                                                          stride)),
-             "bitwise": bool(torch.equal(dw, dw2) and torch.equal(db, db2)),
-             "cudnn_rel_err": reading(*cudnn()[1:]),
-             "max_abs_err": max(float((dw.double() - rw).abs().max()),
-                                float((db.double() - rb).abs().max())),
-             "faults": {
-                 "tap shifted": rel_err(dw[..., 1:].double(), rw[..., :-1]),
-                 "slab skipped": reading(*CW.conv3d_wgrad(x, gz, kern,
-                                                          stride)),
-                 "bias left out": reading(dw, torch.zeros_like(db))}}
-        del rw, rb, dw2, db2, gcl, gz
-        r["ms"] = cuda_ms(lambda: CW.conv3d_wgrad(x, gy, kern, stride))
-        r["plain_ms"] = cuda_ms(
-            lambda: CW.wgrad_plain(x, gy, kern, stride), 3, 1)
-        r["library_ms"] = cuda_ms(cudnn, 3, 1)
-        taps = ci * math.prod(kern)
-        positions = n * math.prod(outs)
-        r["bound_ms"], r["bound_by"] = bound(
-            4 * (x.numel() + gy.numel() + co * (taps + 1)),
-            2 * co * positions * (taps + 1))
-        r["share_of_bound"] = r["bound_ms"] / r["ms"]
-        r["factor_to_library"] = r["ms"] / r["library_ms"]
-        out["by_shape"][name] = r
-        print(f"conv3d_wgrad {name} (N {n}, Ci {ci}, {t}x{h}x{w} -> "
-              f"{'x'.join(map(str, outs))}, Co {co}): max rel err "
-              f"{r['max_rel_err']:.2e} (channels-last gy "
-              f"{r['channels_last_gy']:.2e}; cuDNN {r['cudnn_rel_err']:.2e})"
-              f" <= {WGRAD_REL}; planted faults "
-              + ", ".join(f"{f} {r['faults'][f]:.2e}" for f in WGRAD_FAULTS)
-              + f" > {WGRAD_REL}; bitwise {r['bitwise']}; kernel {r['ms']:.4f} ms, plain "
-              f"{r['plain_ms']:.4f} ms, cuDNN {r['library_ms']:.4f} ms "
-              f"({r['factor_to_library']:.4f}x of it), bound "
-              f"{r['bound_ms']:.4f} ms ({r['bound_by']}; "
-              f"{r['share_of_bound']:.1%} of it) [{card}]")
-        check(r["max_rel_err"] <= WGRAD_REL
-              and r["channels_last_gy"] <= WGRAD_REL,
-              f"conv3d_wgrad {name}: kernel vs float64")
-        check(r["bitwise"], f"conv3d_wgrad {name}: two launches differ")
-        check(all(r["faults"][f] > WGRAD_REL for f in WGRAD_FAULTS),
-              f"conv3d_wgrad {name}: a planted fault reads under the limit")
-        del x, gy, wt, dw, db
-        torch.cuda.empty_cache()
-    by = out["by_shape"]
-    for k in ("ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err"):
-        out[k] = (sum if k != "max_abs_err" else max)(
-            v[k] for v in by.values())
-    out["bound_by"] = by["of"]["bound_by"]
-    out["share_of_bound"] = out["bound_ms"] / out["ms"]
-    out["factor_to_library"] = out["ms"] / out["library_ms"]
-    out["launches"] = CW.launches
-    out["phase_s"] = time.perf_counter() - t_phase
-    print(f"conv3d_wgrad of + gray: kernel {out['ms']:.4f} ms, cuDNN "
-          f"{out['library_ms']:.4f} ms, bound {out['bound_ms']:.4f} ms "
-          f"({out['share_of_bound']:.1%}); {out['launches']} launches; "
-          f"phase 1e: {out['phase_s']:.1f} s [{card}]")
-    return out
+        return {"max_rel_err": reading(dw, db),
+                "channels_last_gy": reading(*hand(t, c, t[1].contiguous(
+                    memory_format=torch.channels_last_3d))),
+                "bitwise": bool(torch.equal(dw, dw2)
+                                and torch.equal(db, db2)),
+                "cudnn_rel_err": reading(*cudnn(t, c)[1:]),
+                "max_abs_err": max(float((dw.double() - rw).abs().max()),
+                                   float((db.double() - rb).abs().max())),
+                "faults": dict(zip(WGRAD_FAULTS, (
+                    rel_err(dw[..., 1:].double(), rw[..., :-1]),
+                    reading(*hand(t, c, gz)),
+                    reading(dw, torch.zeros_like(db)))))}
+    return GradKernel(
+        "conv3d_wgrad", "1e", 17, "by_shape", WGRAD_REL,
+        ("max_rel_err", "channels_last_gy"),
+        (("channels-last gy", "channels_last_gy"), ("cuDNN", "cudnn_rel_err")),
+        "cuDNN", {"ms": (20, 3), "library_ms": (3, 1), "plain_ms": (3, 1)},
+        1, False, CW, cases, draw, hand,
+        lambda t, c: CW.wgrad_plain(t[0], t[1], c.kern, c.stride), cudnn,
+        verify)
 
 
-def dgrad_phase(card):
-    """1f. The 3D CNN's input gradients at the cell (N = 120, the shapes
-    past conv0, alike in both branches): at conv1-conv5, each branch's dx
-    by cuDNN alone, the hand kernel and its plain version, each timed on
-    its own tensors, which set the shape rule (``conv3d_dgrad.shape_rule``);
-    at the convs the rule takes, the kernel against float64 in memory left
-    dirty, planted faults, a bitwise repeat (on the OF branch's tensors)."""
+def dgrad_kernel():
+    """1f. The 3D CNN's input gradient (``csrc/conv3d_dgrad.cu``) at the
+    cell's conv1-conv5 (past conv0, whose input is data; alike in both
+    branches), whose times set the shape rule (``conv3d_dgrad.shape_rule``;
+    each conv it takes must beat cuDNN); at the convs it takes, dx against
+    float64 computed into a block a NaN-filled tensor left."""
     from ugaitnet_tpu_torch.models.branches import CONV3D_SPEC
     from ugaitnet_tpu_torch.ops.cuda import conv3d_dgrad as CD
-    dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(19)
-    t_phase = time.perf_counter()
-    CD.launches = 0
-    out = {"by_conv": {}}
-    ci, k0, s0 = CONV3D_SPEC[0]
-    size = tuple((a - k) // st + 1 for a, k, st in zip(DGRAD_CLIP, k0, s0))
-    for i, (co, kern, stride) in enumerate(CONV3D_SPEC[1:], 1):
-        name = f"conv{i}"
-        outs = tuple((a - k) // st + 1 for a, k, st in zip(size, kern,
-                                                           stride))
-        x = torch.empty((DGRAD_N, ci, *size), device=dev)   # its shape
-        r = {"x": [DGRAD_N, ci, *size], "co": co, "kernel": list(kern),
-             "stride": list(stride),
-             "rule": CD.shape_rule((DGRAD_N, ci, *size)), "by_branch": {}}
-        for mod in MODS:
-            gy = torch.randn((DGRAD_N, co, *outs), device=dev, generator=gen)
-            wt = torch.randn((co, ci, *kern), device=dev, generator=gen)
-            r["by_branch"][mod] = {
-                "ms": cuda_ms(lambda: CD.conv3d_dgrad(gy, wt, size, stride),
-                              10, 2),
-                "library_ms": cuda_ms(lambda: dgrad_cudnn(gy, x, wt, stride),
-                                      10, 2),
-                "plain_ms": cuda_ms(
-                    lambda: CD.dgrad_plain(gy, wt, size, stride), 3, 1)}
-            if mod == MODS[0]:
-                first = gy, wt
-            del gy, wt
-        for k in ("ms", "library_ms", "plain_ms"):      # OF + gray
-            r[k] = sum(v[k] for v in r["by_branch"].values())
-        r["bound_ms"], r["bound_by"] = bound(
-            4 * len(MODS) * (DGRAD_N * co * math.prod(outs)
-                             + co * ci * math.prod(kern) + x.numel()),
-            2 * len(MODS) * DGRAD_N * math.prod(outs) * co * ci
-            * math.prod(kern))
-        r["share_of_bound"] = r["bound_ms"] / r["ms"]
-        r["factor_to_library"] = r["ms"] / r["library_ms"]
-        line = (f"conv3d_dgrad {name} (N {DGRAD_N}, Ci {ci}, "
-                f"{'x'.join(map(str, size))} -> {'x'.join(map(str, outs))}, "
-                f"Co {co}, stride {'x'.join(map(str, stride))}), "
-                + " + ".join(mod for mod in r["by_branch"])
-                + ": kernel " + " + ".join(
-                    f"{v['ms']:.4f}" for v in r["by_branch"].values())
-                + " ms, cuDNN dx alone " + " + ".join(
-                    f"{v['library_ms']:.4f}" for v in r["by_branch"].values())
-                + f" ms ({r['factor_to_library']:.4f}x of it), plain "
-                + " + ".join(f"{v['plain_ms']:.4f}"
-                             for v in r["by_branch"].values())
-                + f" ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}; "
-                f"{r['share_of_bound']:.1%} of it); the rule "
-                f"{'takes' if r['rule'] else 'leaves'} it")
-        if r["rule"]:
-            gy, wt = first
 
-            def hand():
-                return CD.conv3d_dgrad(gy, wt, size, stride)
-            ref = CD.dgrad_plain(gy.double(), wt.double(), size, stride)
-            # memory left dirty: dx takes the block of a NaN-filled tensor
-            # of its size, freed just before
-            junk = torch.full_like(x, float("nan"))
-            ptr = junk.data_ptr()
-            del junk
-            dx = hand()
-            dx2 = hand()
-            # positions no output reads: past each extent's reach
-            reach = [st * (o - 1) + k for o, k, st in zip(outs, kern,
-                                                          stride)]
-            stale = dx.clone()
-            stale[:, :, reach[0]:] = stale[:, :, :, reach[1]:] = \
-                stale[..., reach[2]:] = ref.abs().max()
-            skipped = dx.clone()
-            skipped[:, :, stride[0] - 1::stride[0], stride[1] - 1::stride[1],
-                    stride[2] - 1::stride[2]] = 0
-            unread = reach != list(size)
-            r.update({
-                "max_rel_err": rel_err(dx.double(), ref),
+    def cases():
+        return [GradCase(f"conv{i}", ci, size, co, kern, stride, outs,
+                         CD.shape_rule((CELL_N, ci["of"], *size)))
+                for i, ci, size, co, kern, stride, outs in cell_convs(
+                    CONV3D_SPEC) if i > 0]
+
+    def draw(gen, c, ci):
+        return (torch.randn((CELL_N, c.co, *c.outs), device="cuda",
+                            generator=gen),
+                torch.randn((c.co, ci, *c.kern), device="cuda",
+                            generator=gen),
+                torch.empty((CELL_N, ci, *c.size), device="cuda"))
+
+    def hand(t, c):
+        return CD.conv3d_dgrad(t[0], t[1], c.size, c.stride)
+
+    def cudnn(t, c):
+        return cudnn_grads(t[0], t[2], t[1], c.stride,
+                           [True, False, False])[0]
+
+    def verify(t, c):
+        ref = CD.dgrad_plain(t[0].double(), t[1].double(), c.size, c.stride)
+        # memory left dirty: dx takes the block of a NaN-filled tensor of
+        # its size, freed just before
+        junk = torch.full_like(t[2], float("nan"))
+        ptr = junk.data_ptr()
+        del junk
+        dx = hand(t, c)
+        dx2 = hand(t, c)
+        # positions no output reads: past each extent's reach
+        reach = [st * (o - 1) + k for o, k, st in zip(c.outs, c.kern,
+                                                      c.stride)]
+        stale = dx.clone()
+        stale[:, :, reach[0]:] = stale[:, :, :, reach[1]:] = \
+            stale[..., reach[2]:] = ref.abs().max()
+        skipped = dx.clone()
+        s = c.stride
+        skipped[:, :, s[0] - 1::s[0], s[1] - 1::s[1], s[2] - 1::s[2]] = 0
+        return {"max_rel_err": rel_err(dx.double(), ref),
                 "dirty_block_reused": dx.data_ptr() == ptr,
                 "bitwise": bool(torch.equal(dx, dx2)),
-                "cudnn_rel_err": rel_err(
-                    dgrad_cudnn(gy, x, wt, stride).double(), ref),
+                "cudnn_rel_err": rel_err(cudnn(t, c).double(), ref),
                 "max_abs_err": float((dx.double() - ref).abs().max()),
-                "faults": {
-                    "tap shifted": rel_err(dx[..., 1:].double(),
-                                           ref[..., :-1]),
-                    "phase skipped": rel_err(skipped.double(), ref),
-                    "unread rows left unzeroed": (
-                        rel_err(stale.double(), ref) if unread else None)}})
-            del ref, dx, dx2, stale, skipped, gy, wt
-            line += (f"; max rel err {r['max_rel_err']:.2e} (cuDNN "
-                     f"{r['cudnn_rel_err']:.2e}; dx in a dirty block "
-                     f"{r['dirty_block_reused']}) <= {DGRAD_REL}; planted "
-                     f"faults " + ", ".join(
+                "faults": dict(zip(DGRAD_FAULTS, (
+                    rel_err(dx[..., 1:].double(), ref[..., :-1]),
+                    rel_err(skipped.double(), ref),
+                    rel_err(stale.double(), ref)
+                    if reach != list(c.size) else None)))}
+    return GradKernel(
+        "conv3d_dgrad", "1f", 19, "by_conv", DGRAD_REL, ("max_rel_err",),
+        (("cuDNN", "cudnn_rel_err"),
+         ("dx in a dirty block", "dirty_block_reused")),
+        "cuDNN dx alone",
+        {"ms": (10, 2), "library_ms": (10, 2), "plain_ms": (3, 1)}, 0, True,
+        CD, cases, draw, hand,
+        lambda t, c: CD.dgrad_plain(t[0], t[1], c.size, c.stride), cudnn,
+        verify)
+
+
+def grad_kernel_phase(ctx, d):
+    """Phases 1e and 1f (``d``: ``wgrad_kernel()``, ``dgrad_kernel()``): at
+    each conv ``d.cases`` lists, the kernel, cuDNN and the plain version
+    timed on each branch's own tensors (CUDA events, summed over the
+    branches) against the bound; at those the rule takes, on the first
+    branch's tensors, ``d.verify``'s readings against float64 within
+    ``d.rel``, each planted fault above it and two launches bitwise."""
+    card = ctx.card
+    gen = torch.Generator(device="cuda").manual_seed(d.seed)
+    t_phase = time.perf_counter()
+    d.module.launches = 0
+    out = {d.by: {}}
+    for c in d.cases():
+        r = {"x": [CELL_N, next(iter(c.ci.values())), *c.size], "co": c.co,
+             "kernel": list(c.kern), "stride": list(c.stride),
+             "rule": c.rule, "by_branch": {}}
+        first, nbytes, nops = None, 0, 0
+        for mod, ci in c.ci.items():
+            t = d.draw(gen, c, ci)
+            r["by_branch"][mod] = {
+                k: cuda_ms(lambda: fn(t, c), *d.iters[k])
+                for k, fn in (("ms", d.hand), ("library_ms", d.cudnn),
+                              ("plain_ms", d.plain))}
+            first = first or t
+            w = c.co * (ci * math.prod(c.kern) + d.bias)   # (and biases)
+            y = CELL_N * math.prod(c.outs)                 # output positions
+            nbytes += 4 * (CELL_N * ci * math.prod(c.size) + y * c.co + w)
+            nops += 2 * y * w
+        del t
+        for k in ("ms", "library_ms", "plain_ms"):
+            r[k] = sum(v[k] for v in r["by_branch"].values())
+        r["bound_ms"], r["bound_by"] = bound(nbytes, nops)
+        r["share_of_bound"] = r["bound_ms"] / r["ms"]
+        r["factor_to_library"] = r["ms"] / r["library_ms"]
+
+        def times(k):
+            return " + ".join(f"{v[k]:.4f}" for v in r["by_branch"].values())
+        line = (f"{d.name} {c.name} (N {CELL_N}, Ci {r['x'][1]}, "
+                f"{'x'.join(map(str, c.size))} -> "
+                f"{'x'.join(map(str, c.outs))}, Co {c.co}, stride "
+                f"{'x'.join(map(str, c.stride))}), "
+                f"{' + '.join(r['by_branch'])}: kernel {times('ms')} ms, "
+                f"{d.library} {times('library_ms')} ms "
+                f"({r['factor_to_library']:.4f}x of it), plain "
+                f"{times('plain_ms')} ms, bound {r['bound_ms']:.4f} ms "
+                f"({r['bound_by']}; {r['share_of_bound']:.1%} of it); the "
+                f"rule {'takes' if c.rule else 'leaves'} it")
+        if c.rule:
+            r.update(d.verify(first, c))
+            line += (f"; max rel err {r['max_rel_err']:.2e} ("
+                     + "; ".join(f"{label} {r[k]:.2e}" if isinstance(
+                         r[k], float) else f"{label} {r[k]}"
+                                 for label, k in d.notes)
+                     + f") <= {d.rel}; planted faults " + ", ".join(
                          f"{f} {v:.2e}" for f, v in r["faults"].items()
                          if v is not None)
-                     + f" > {DGRAD_REL}; bitwise {r['bitwise']}")
+                     + f" > {d.rel}; bitwise {r['bitwise']}")
         print(line + f" [{card}]")
-        if r["rule"]:
-            check(r["max_rel_err"] <= DGRAD_REL,
-                  f"conv3d_dgrad {name}: kernel vs float64")
-            check(r["bitwise"], f"conv3d_dgrad {name}: two launches differ")
-            check(all(v > DGRAD_REL for v in r["faults"].values()
+        if c.rule:
+            check(all(r[k] <= d.rel for k in d.held),
+                  f"{d.name} {c.name}: kernel vs float64")
+            check(r["bitwise"], f"{d.name} {c.name}: two launches differ")
+            check(all(v > d.rel for v in r["faults"].values()
                       if v is not None),
-                  f"conv3d_dgrad {name}: a planted fault reads under the "
+                  f"{d.name} {c.name}: a planted fault reads under the "
                   f"limit")
-            check(r["ms"] < r["library_ms"], f"conv3d_dgrad {name}: the "
-                  f"rule takes a conv where cuDNN is faster")
-        out["by_conv"][name] = r
-        del x, first
+            if d.beats_cudnn:
+                check(r["ms"] < r["library_ms"], f"{d.name} {c.name}: the "
+                      f"rule takes a conv where cuDNN is faster")
+        out[d.by][c.name] = r
+        del first
         torch.cuda.empty_cache()
-        ci, size = co, outs
-    taken = [v for v in out["by_conv"].values() if v["rule"]]
+    taken = [v for v in out[d.by].values() if v["rule"]]
     for k in ("ms", "plain_ms", "library_ms", "bound_ms"):
         out[k] = sum(v[k] for v in taken)
     out["max_abs_err"] = max(v["max_abs_err"] for v in taken)
     out["bound_by"] = taken[0]["bound_by"]
     out["share_of_bound"] = out["bound_ms"] / out["ms"]
     out["factor_to_library"] = out["ms"] / out["library_ms"]
-    out["launches"] = CD.launches
+    out["launches"] = d.module.launches
     out["phase_s"] = time.perf_counter() - t_phase
-    print(f"conv3d_dgrad of + gray at the convs the rule takes "
-          f"({', '.join(k for k, v in out['by_conv'].items() if v['rule'])}"
-          f"): kernel {out['ms']:.4f} ms, cuDNN {out['library_ms']:.4f} ms, "
+    print(f"{d.name} of + gray at the convs the rule takes "
+          f"({', '.join(k for k, v in out[d.by].items() if v['rule'])}): "
+          f"kernel {out['ms']:.4f} ms, cuDNN {out['library_ms']:.4f} ms, "
           f"bound {out['bound_ms']:.4f} ms ({out['share_of_bound']:.1%}); "
-          f"{out['launches']} launches; phase 1f: {out['phase_s']:.1f} s "
-          f"[{card}]")
+          f"{out['launches']} launches; phase {d.phase}: "
+          f"{out['phase_s']:.1f} s [{card}]")
     return out
-
-
-def dgrad_cudnn(gy, x, wt, stride):
-    """cuDNN's dx alone of the VALID conv of x (its shape) with wt."""
-    return torch.ops.aten.convolution_backward(
-        gy, x, wt, None, list(stride), [0, 0, 0], [1, 1, 1], False,
-        [0, 0, 0], 1, [True, False, False])[0]
 
 
 def tail_vs_plain_step(mcfg, tcfg, before, batch):
@@ -1814,6 +1853,12 @@ def raw_batch(b, ids, seed, dev="cuda"):
     }
 
 
+def perturbed(raw, i):
+    """The raw batch with both modalities' values XORed with i."""
+    return {**raw, "raw_of": raw["raw_of"] ^ i,
+            "raw_gray": raw["raw_gray"] ^ i}
+
+
 def median_ms(fn, n=5):
     """Median host-clock ms of n calls of fn() after one warm-up call; fn
     returns host data, so each call ends synchronized."""
@@ -1925,7 +1970,26 @@ def forward_vs_cpu(model, mods, dcfg):
     return res
 
 
-def eval_phase(model, gallery_ds, probe_ds, card):
+def eval_phase(ctx):
+    """5. ``_eval`` by the seed-0 flagship over the sets, with the stage
+    tail's launches counted (2 per branch forward, no backward)."""
+    from ugaitnet_tpu_torch.models.network import UGaitNet
+    from ugaitnet_tpu_torch.ops.cuda import triplet_kernel as K
+    sets = ctx.results["sets"]
+    K.reset_launch_counts()
+    encode_tail = {}
+    with tail_counts(encode_tail):
+        eval_res = _eval(UGaitNet(flagship_cfg(), seed=0), sets["_gallery"],
+                         sets["_probe"], ctx.card)
+    print(f"stage-tail launches in phase 5 (encode): {encode_tail}")
+    check(encode_tail["branch_forwards"] > 0 and encode_tail["tail_bwd"] == 0
+          and encode_tail["tail_fwd"] == 2 * encode_tail["branch_forwards"],
+          f"phase 5 stage-tail launches {encode_tail}")
+    eval_res["tail_launches"] = encode_tail
+    return eval_res
+
+
+def _eval(model, gallery_ds, probe_ds, card):
     """Encode, kNN and both open-world protocols at the flagship's width."""
     from ugaitnet_tpu_torch.core.config import EvalConfig
     from ugaitnet_tpu_torch.eval.encode import encode_dataset
@@ -2101,10 +2165,17 @@ def bf16_serve_checks(svc, raw):
     return r
 
 
-def serve_phase(make_model, gallery_ds, probe_ds, card, big=65536):
-    """SignatureService at the flagship's width: identify per bucket,
-    enroll/remove, and a gallery of `big` random codes.  make_model(dtype)
-    builds the net."""
+def serve_phase(ctx, big=65536):
+    """6. SignatureService at the flagship's width over the sets: identify
+    per bucket, enroll/remove, and a gallery of `big` random codes."""
+    from ugaitnet_tpu_torch.models.network import UGaitNet
+    from ugaitnet_tpu_torch.ops.cuda import triplet_kernel as K
+    card, sets = ctx.card, ctx.results["sets"]
+    # the last phase that reads the sets in memory takes them
+    gallery_ds, probe_ds = sets.pop("_gallery"), sets.pop("_probe")
+
+    def make_model(dtype):
+        return UGaitNet(flagship_cfg(dtype=dtype), seed=0)
     from ugaitnet_tpu_torch.eval.serving import SignatureService
     out = {"identify_raw_ms": {}}
     vols = {m: probe_ds.modalities[m].volumes for m in MODS}
@@ -2207,6 +2278,8 @@ def serve_phase(make_model, gallery_ds, probe_ds, card, big=65536):
           f"(median of 5, host copies included), device (distances + top-k +"
           f" vote, CUDA events) {dev_ms:.3f} ms, bound {b_ms:.3f} ms "
           f"({b_by}); set_gallery {set_s:.1f} s [{card}]")
+    print(f"triplet kernel launches during eval and serve: "
+          f"{K.fwd_launches}, {K.bwd_launches} (not on these paths)")
     return out
 
 
@@ -2254,10 +2327,9 @@ def epoch_losses(experdir, key="train/loss"):
             if key in r}
 
 
-def trainer_phase(card, work, gallery_dir, probe_dir, isolated_step_ms,
-                  train_ms):
-    """7. The trainer at the flagship's width through the CLIs, in the
-    directory ``work`` (which the caller removes)."""
+def trainer_phase(ctx):
+    """7. The trainer at the flagship's width through the CLIs, under the
+    work directory; the fit's step against phase 3's."""
     from ugaitnet_tpu_torch.cli import evaluate as cli_eval
     from ugaitnet_tpu_torch.cli import train as cli_train
     from ugaitnet_tpu_torch.core import checkpoint as ckpt
@@ -2273,6 +2345,10 @@ def trainer_phase(card, work, gallery_dir, probe_dir, isolated_step_ms,
     from ugaitnet_tpu_torch.train import trainer as TR
     from ugaitnet_tpu_torch.train.train_step import init_state
     from ugaitnet_tpu_torch.utils import net_utils
+    card, work = ctx.card, os.path.join(ctx.work, "train")
+    sets, p3 = ctx.results["sets"], ctx.results["3"]
+    gallery_dir, probe_dir = sets["_gallery_dir"], sets["_probe_dir"]
+    isolated_step_ms, train_ms = p3["_isolated_step_ms"], p3["train_step_ms"]
     out = {}
     proc = None
     os.makedirs(work, exist_ok=True)
@@ -2720,8 +2796,7 @@ def labels_outside_near_ties(d2, labels, pred, k, eps):
     return firm, int(((pred != want) & firm).sum())
 
 
-def int8_phase(card, sets, gallery_dir, probe_dir, experdir, serve_res,
-               bigs=(65536, 262144)):
+def int8_phase(ctx, bigs=(65536, 262144)):
     """8. The int8 gallery, the int8 encode and export at the flagship's
     width over phase 5's sets."""
     from ugaitnet_tpu_torch.cli import export_model
@@ -2731,6 +2806,9 @@ def int8_phase(card, sets, gallery_dir, probe_dir, experdir, serve_res,
     from ugaitnet_tpu_torch.models.network import UGaitNet
     from ugaitnet_tpu_torch.ops.knn import (int8_mm, pairwise_l2_int8,
                                             quantize_rows)
+    card, sets = ctx.card, ctx.results["sets"]
+    gallery_dir, probe_dir = sets["_gallery_dir"], sets["_probe_dir"]
+    experdir, serve_res = ctx.results["7"]["experdir"], ctx.results["6"]
     dev = torch.device("cuda")
     out = {}
     gallery_ds, probe_ds = GaitDataset.load(gallery_dir), \
@@ -2949,7 +3027,7 @@ def int8_phase(card, sets, gallery_dir, probe_dir, experdir, serve_res,
     # -- export both services; a fresh process loads and encodes
     art = {}
     for name, s_ in (("fp32", fp32), ("int8", svcq)):
-        art[name] = os.path.join(sets, f"artifact_{name}")
+        art[name] = os.path.join(ctx.work, f"artifact_{name}")
         t0 = time.perf_counter()
         sizes = export_encoder(s_, art[name], buckets=BUCKETS)
         out[f"export_{name}_s"] = time.perf_counter() - t0
@@ -2958,7 +3036,7 @@ def int8_phase(card, sets, gallery_dir, probe_dir, experdir, serve_res,
           f"{out['export_fp32_s']:.1f} s ({out['export_fp32_mb']} MB), int8"
           f" {out['export_int8_s']:.1f} s ({out['export_int8_mb']} MB) "
           f"[{card}]")
-    feed = os.path.join(sets, "probes128.npz")
+    feed = os.path.join(ctx.work, "probes128.npz")
     np.savez(feed, **probes)
     res = subprocess.run([sys.executable, "-c", EXPORT_BOOT, REPO, feed]
                          + [art["fp32"], art["int8"]], capture_output=True,
@@ -3003,7 +3081,7 @@ def int8_phase(card, sets, gallery_dir, probe_dir, experdir, serve_res,
         check(False, "a device='cpu' load of the cuda artifact did not raise")
 
     # -- the export CLI on phase 7's best
-    cli_out = os.path.join(sets, "artifact_cli")
+    cli_out = os.path.join(ctx.work, "artifact_cli")
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         export_model.main(["--experdir", experdir, "--epoch", "best",
@@ -3020,19 +3098,7 @@ def int8_phase(card, sets, gallery_dir, probe_dir, experdir, serve_res,
 BRANCH_STEPS = 3
 
 
-def dgrad_convs(spec, rule, n=DGRAD_N, ci=2, clip=DGRAD_CLIP):
-    """How many convs of a 3D CNN branch past its first (whose input is
-    data) the input-gradient rule takes, at n rows of the clip's shape."""
-    size, taken = clip, 0
-    for i, (co, kern, stride) in enumerate(spec):
-        taken += i > 0 and rule((n, ci, *size))
-        size = tuple((a - k) // st + 1 for a, k, st in zip(size, kern,
-                                                           stride))
-        ci = co
-    return taken
-
-
-def branch_phase(card):
+def branch_phase(ctx):
     """9. The train CLI's --no-gaitset (2D CNN) and --no-gaitset --use3d
     (3D CNN) nets at full width: forward card vs CPU, Adam steps, the last
     of them against a step with the plain triplet, the Keras L2 term card
@@ -3046,11 +3112,12 @@ def branch_phase(card):
     from ugaitnet_tpu_torch.ops.cuda import conv3d_wgrad as CW
     from ugaitnet_tpu_torch.ops.quantize import (encode_int8,
                                                  quantize_model_params)
+    from ugaitnet_tpu_torch.ops.cuda import triplet_kernel as K
     from ugaitnet_tpu_torch.train.train_step import (Batch, init_state,
                                                      l2_regularization,
                                                      make_train_step)
-    dcfg = DataConfig()
-    mods = (MODS, (2, 1), (100.0, 1.0), 2)
+    card, dcfg, mods = ctx.card, DataConfig(), PREPROCESS
+    K.reset_launch_counts()
     out = {}
 
     for name, flags in (("conv2d", ["--no-gaitset"]),
@@ -3098,9 +3165,7 @@ def branch_phase(card):
         step_ms, losses, kstore = [], [], {}
         CW.launches = CD.launches = 0
         for i in range(BRANCH_STEPS):
-            r = dict(raw)
-            r["raw_of"] = raw["raw_of"] ^ i
-            r["raw_gray"] = raw["raw_gray"] ^ i
+            r = perturbed(raw, i)
             if i == BRANCH_STEPS - 1:   # the state the plain step starts from
                 before = (copy.deepcopy(state.model.state_dict()),
                           copy.deepcopy(state.optimizer.state_dict()),
@@ -3173,6 +3238,12 @@ def branch_phase(card):
         out[name] = res
         del model, cpu, state, qnet
         torch.cuda.empty_cache()
+    conv_launches = {"triplet_fwd": K.fwd_launches,
+                     "triplet_bwd": K.bwd_launches}
+    check(conv_launches == {"triplet_fwd": 2 * BRANCH_STEPS,
+                            "triplet_bwd": 2 * BRANCH_STEPS},
+          f"triplet launches in phase 9's steps: {conv_launches}")
+    out["_triplet_launches"] = conv_launches
     return out
 
 
@@ -3269,7 +3340,7 @@ def hard_ties(d, lab, w, margin):
     return count, count * w / (b * d.shape[0]), touched
 
 
-def surface_phase(card, kernel_ms):
+def surface_phase(ctx):
     """10. The rest of the model and loss surface at the flagship's width:
     casenet C with postriplet 2, aux heads and dropcode through the triplet
     kernel (and one postriplet-1 step); the head alone card vs CPU; the
@@ -3287,9 +3358,10 @@ def surface_phase(card, kernel_ms):
     from ugaitnet_tpu_torch.train.train_step import (
         Batch, PairBatch, embed_pair_side, init_state, make_pair_train_step,
         make_train_step, pair_keys)
-    dev = torch.device("cuda")
-    dcfg = DataConfig()
-    mods = (MODS, (2, 1), (100.0, 1.0), 2)
+    card, dev, dcfg, mods = ctx.card, torch.device("cuda"), DataConfig(), \
+        PREPROCESS
+    flag_t = ctx.results["1"]["triplet_times"]["flagship"]
+    kernel_ms = flag_t["fwd_call_ms"] + flag_t["bwd_call_ms"]
     base = ModelConfig(
         branches=(BranchConfig(kind="gaitset", modality="of"),
                   BranchConfig(kind="gaitset", modality="gray")),
@@ -3308,9 +3380,7 @@ def surface_phase(card, kernel_ms):
     losses, step_ms, kstore = [], [], {}
     K.reset_launch_counts()
     for i in range(SURFACE_STEPS):
-        r = dict(raw)
-        r["raw_of"] = raw["raw_of"] ^ i
-        r["raw_gray"] = raw["raw_gray"] ^ i
+        r = perturbed(raw, i)
         v, f, lab = preprocess_batch(r, *mods, 3, True, dcfg, generator=gen)
         batch = Batch(tuple(v), tuple(f), lab)
         if i == SURFACE_STEPS - 1:   # the state the plain step starts from
@@ -3602,10 +3672,11 @@ TUM_SHAPE = dict(num_subjects=150, videos_per_subject=2, subseqs_per_video=2,
                  num_cams=1, template_seed=1, seed=8, name="tum_train")
 
 
-def joint_phase(card, work, casia_dir, gallery_dir, probe_dir, fit7_ms):
+def joint_phase(ctx):
     """11. Joint two-dataset training, warm starts, the sweep, and evaluate
     and export of a two-source run, through the CLIs at the flagship's
-    width, in the directory ``work`` (which the caller removes)."""
+    width, on phase 7's training set and the sets, under the work
+    directory."""
     from ugaitnet_tpu_torch.cli import evaluate as cli_eval
     from ugaitnet_tpu_torch.cli import export_model as cli_export
     from ugaitnet_tpu_torch.cli import sweep as cli_sweep
@@ -3621,6 +3692,12 @@ def joint_phase(card, work, casia_dir, gallery_dir, probe_dir, fit7_ms):
     from ugaitnet_tpu_torch.obsv.logger import read_metrics
     from ugaitnet_tpu_torch.ops.cuda import triplet_kernel as K
     from ugaitnet_tpu_torch.train import trainer as TR
+    t_phase = time.perf_counter()
+    card, work = ctx.card, os.path.join(ctx.work, "joint")
+    sets = ctx.results["sets"]
+    gallery_dir, probe_dir = sets["_gallery_dir"], sets["_probe_dir"]
+    casia_dir = os.path.join(ctx.work, "train", "casia_train")
+    fit7_ms = ctx.results["7"]["fit_ms_per_step_steady"]
     out = {}
     os.makedirs(work, exist_ok=True)
 
@@ -3948,6 +4025,9 @@ def joint_phase(card, work, casia_dir, gallery_dir, probe_dir, fit7_ms):
           f"cli.export_model: norm_sources {meta['norm_sources']}, codes "
           "differ by source row")
     out.update(evaluate_mean_rank1_subseq=mean_r1, export_meta=meta)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"phase 11: {out['phase_s']:.1f} s; triplet launches in the joint "
+          f"run {out['launches']} [{card}]")
     return out
 
 
@@ -3968,11 +4048,10 @@ def joint_phase(card, work, casia_dir, gallery_dir, probe_dir, fit7_ms):
 # inputs bitwise the ranks'), and counts the triplets whose hinge changes
 # side: an H100 (700 W) reads 1 switched pick of 1,904,640, 1.68e-3
 # unforced and fed, 6.0e-5 forced, and no hinge that changes side.  The
-# forced 6.0e-5 is not a fault of the step (tools/chip_p12_conv.py): the
+# forced 6.0e-5 is not a fault of the step (ROADMAP section 3): the
 # branches' cuDNN convs round apart at 60 rows (1.6e-6 at b_conv3), max
 # and leaky ReLU switches carry that into the cotangents, and the forced
-# step with every branch run on the ranks' 60-row halves reads 2.4e-7
-# (ROADMAP section 3).
+# step with every branch run on the ranks' 60-row halves reads 2.4e-7.
 # Every run also reads three planted faults against P12_GRAD_REL (the
 # gather without its autograd, own rows only; the local L2 inside the
 # global form; gradients summed, not averaged).
@@ -4354,29 +4433,19 @@ def flagship_cfg(experts=0, dtype="float32"):
         merge="sign_max", nclasses=74, compute_dtype=dtype)
 
 
-def parallel_phase(card, work):
+def parallel_phase(ctx):
     """Phase 12: the multi-device training forms over torch.distributed."""
-    from ugaitnet_tpu_torch.core.config import DataConfig, TrainConfig
-    from ugaitnet_tpu_torch.data.pipeline import preprocess_batch
+    from ugaitnet_tpu_torch.core.config import TrainConfig
     from ugaitnet_tpu_torch.models.network import UGaitNet
     from ugaitnet_tpu_torch.parallel import sharding as S
     from ugaitnet_tpu_torch.train.train_step import (Batch, init_state,
                                                      make_train_step)
+    card, work = ctx.card, os.path.join(ctx.work, "parallel")
     t_phase = time.perf_counter()
-    os.makedirs(work, exist_ok=True)
     _p12_setup()
-    mods = (("of", "gray"), (2, 1), (100.0, 1.0), 2)
     # phase 3's first augmented batch (raw B = 40, expand 3) and seed-0 state
-    vols, flags, labels = preprocess_batch(
-        raw_batch(40, 8, seed=2), *mods, 3, True, DataConfig(),
-        generator=torch.Generator().manual_seed(0))
+    vols, flags, labels = ctx.results["batch"].pop("_batch")
     batch = Batch(tuple(vols), tuple(flags), labels)
-    for name, rows in (("batch.pt", slice(None)), ("batch40.pt",
-                                                    slice(0, 40))):
-        torch.save({"volumes": [v[rows].cpu() for v in vols],
-                    "flags": [f[rows].cpu() for f in flags],
-                    "labels": labels[rows].cpu()},
-                   os.path.join(work, name))
     small = Batch(tuple(v[:40] for v in vols), tuple(f[:40] for f in flags),
                   labels[:40])
     check(len(set(labels[:40].tolist())) > 1, "B = 40 batch: one id")
@@ -4909,7 +4978,7 @@ def counted_trace(logdir, marker):
     return {"path": path, "before": before}
 
 
-def tp_pp_phase(card, work, experdir, gallery_dir, probe_dir, one_results):
+def tp_pp_phase(ctx):
     """Phase 13: TP and PP against the one-process step, mesh serving and
     the sharded kNN, evaluate --dp 2, and a trace of two train steps."""
     from ugaitnet_tpu_torch.core.config import TrainConfig
@@ -4923,6 +4992,11 @@ def tp_pp_phase(card, work, experdir, gallery_dir, probe_dir, one_results):
     from ugaitnet_tpu_torch.train.train_step import (Batch, init_state,
                                                      make_train_step)
     t_phase = time.perf_counter()
+    card, work = ctx.card, os.path.join(ctx.work, "parallel")
+    sets, experdir = ctx.results["sets"], ctx.results["7"]["experdir"]
+    gallery_dir, probe_dir = sets["_gallery_dir"], sets["_probe_dir"]
+    with open(os.path.join(ctx.work, "train", "results.json")) as f:
+        one_results = json.load(f)[os.path.basename(probe_dir)]
     _p12_setup()
     dev = torch.device("cuda", 0)
     mcfg, tcfg = flagship_cfg(), TrainConfig()
@@ -5315,11 +5389,10 @@ def conv_vs_plain(x, w):
     return r
 
 
-def convergence_phase(card, work, device="cuda"):
+def convergence_phase(ctx, device="cuda"):
     """14. The port's convergence run (``eval/synthetic_rank1.py:run``) on
-    the card at 64 identities, in the directory ``work`` (which the caller
-    removes): the tiny twin (the JAX artifact's configuration) and the
-    flagship at full width, each through ``Trainer.fit``, the fp32 encode
+    the card at 64 identities, under the work directory: the tiny twin (the
+    JAX artifact's configuration) and the flagship at full width, each through ``Trainer.fit``, the fp32 encode
     and the three probe sweeps; then the full-width weights re-encoded in
     bf16 without autograd (the conv kernel's path).  Exact launch counts
     on each path, the kernels against their plain versions on the path's
@@ -5333,6 +5406,7 @@ def convergence_phase(card, work, device="cuda"):
     from ugaitnet_tpu_torch.ops.cuda import conv3x3 as CV
     from ugaitnet_tpu_torch.ops.cuda import triplet_kernel as K
     from ugaitnet_tpu_torch.train import trainer as TR
+    card, work = ctx.card, os.path.join(ctx.work, "convergence")
     t_phase = time.perf_counter()
     # a user's settings (phases 12 and 13 leave deterministic cuDNN on)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -5666,54 +5740,13 @@ def ptxas_report(build_dir, sources):
     return rows
 
 
-def main():
-    if not torch.cuda.is_available():
-        sys.exit("chip_smoke: no CUDA device")
-    t_start = time.perf_counter()
-    from ugaitnet_tpu_torch.core.config import DataConfig, TrainConfig
-    from ugaitnet_tpu_torch.data.pipeline import preprocess_batch
-    from ugaitnet_tpu_torch.models.network import UGaitNet
-    from ugaitnet_tpu_torch.ops.cuda import build
-    from ugaitnet_tpu_torch.ops.cuda import conv3x3 as CV
-    from ugaitnet_tpu_torch.ops.cuda import stage_tail as ST
+def triplet_phase(ctx):
+    """1. The triplet kernels against the plain loss and exactly against
+    themselves at every case, timed at the flagship, B = 256 and B = 512
+    and a TP strip."""
     from ugaitnet_tpu_torch.ops.cuda import triplet_kernel as K
-    from ugaitnet_tpu_torch.ops.triplet import (batch_all_triplet_loss,
-                                                pairwise_dist)
-    from ugaitnet_tpu_torch.train.train_step import (Batch, init_state,
-                                                     make_train_step)
-
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    dev = torch.device("cuda")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
-    print(f"card: {card}")
-    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
-          f"python {sys.version.split()[0]}")
-
-    t0 = time.perf_counter()
-    # one nvcc per source, all started together, then load them
-    from concurrent.futures import ThreadPoolExecutor
-    sources = ("triplet_kernel", "stage_tail", "conv3x3", "probes",
-               "conv3d_wgrad", "conv3d_dgrad")
-    with ThreadPoolExecutor(len(sources)) as pool:
-        list(pool.map(build.build, sources))
-    for name in sources:
-        build.load(name)
-    print(f"kernel build ({', '.join(sources)}, in parallel): "
-          f"{time.perf_counter() - t0:.1f} s")
-    # the host gather's library, built here so no timed phase pays for it
-    from ugaitnet_tpu_torch.data import native
-    t0 = time.perf_counter()
-    check(native.get_lib() is not None,
-          "the native gather did not build (host C++ compiler)")
-    print(f"native gather build: {time.perf_counter() - t0:.1f} s "
-          f"({native.LIB_PATH})")
-    ptxas_report(build.BUILD_DIR, sources)
-
-    # ---- 1. kernels vs plain ---------------------------------------------
+    from ugaitnet_tpu_torch.ops.triplet import batch_all_triplet_loss
+    card, dev = ctx.card, torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
 
     def case(parts, b, d, labels):
@@ -5827,38 +5860,31 @@ def main():
         print(f"kernel {name}: value {vk} (plain {vp}), grad max "
               f"{float(gk.abs().max())}")
         check(vk == 0.0 and vp == 0.0 and float(gk.abs().max()) == 0.0, name)
-    flag_t = times["flagship"]
+    return {"triplet_times": times, "dist_rel_err": dist_err,
+            "grad_rel_err": {k: {"kernel": v[2], **v[3]}
+                             for k, v in results.items()},
+            "_fwd_err": fwd_err, "_bwd_err": bwd_err}
 
-    # ---- 1b. the stage tail kernels vs plain -------------------------------
-    tail_res = tail_phase(card)
 
-    # ---- 1c. the conv kernel vs plain; 1d. the probes ----------------------
-    conv_res = conv_phase(card)
-    probe_res = probe_phase(card)
-
-    # ---- 1e. the 3D CNN's first-conv weight gradient vs float64 -----------
-    wgrad_res = wgrad_phase(card)
-
-    # ---- 1f. the 3D CNN's input gradients vs cuDNN and float64 -----------
-    dgrad_res = dgrad_phase(card)
-
-    # ---- full-width flagship ----------------------------------------------
-    dcfg = DataConfig()
-    mods = (("of", "gray"), (2, 1), (100.0, 1.0), 2)
-
-    # ---- 2. embed ------------------------------------------------------------
+def embed_phase(ctx):
+    """2. Preprocess and forward at B = 128 in float32 and bfloat16, with
+    the conv kernel's launches; the bf16 forward against the F.conv2d
+    route."""
+    from ugaitnet_tpu_torch.core.config import DataConfig
+    from ugaitnet_tpu_torch.data.pipeline import preprocess_batch
+    from ugaitnet_tpu_torch.models.network import UGaitNet
+    from ugaitnet_tpu_torch.ops.cuda import conv3x3 as CV
+    card, dev, dcfg = ctx.card, torch.device("cuda"), DataConfig()
     raw = raw_batch(128, 1, seed=1)
     embed, embed_conv = {}, {}
-    iters = 10
+    iters = EMBED_ITERS
     for dtype in ("float32", "bfloat16"):
         model = UGaitNet(flagship_cfg(dtype=dtype), seed=0)
         model.eval()
 
         def embed_once(i, out="signature"):
-            r = dict(raw)
-            r["raw_of"] = raw["raw_of"] ^ i
-            r["raw_gray"] = raw["raw_gray"] ^ i
-            vols, flags, _ = preprocess_batch(r, *mods, 1, False, dcfg)
+            vols, flags, _ = preprocess_batch(perturbed(raw, i), *PREPROCESS,
+                                              1, False, dcfg)
             res = model(vols, flags)
             return res[out] if out else res
 
@@ -5906,8 +5932,24 @@ def main():
                   f"kernel): conv kernel {ab['kernel']} ms/batch, F.conv2d "
                   f"{ab['cudnn']} ms/batch [{card}]")
         del model
+    return {"embed_ms_per_batch": embed, "embed_bf16_route": embed_route,
+            "_conv": embed_conv}
 
-    # ---- 3. train: the main path -------------------------------------------
+
+def train_phase(ctx):
+    """3. The main path: Adam steps of the flagship on augmented batches,
+    kernel launches counted; a step with the plain triplet and one with the
+    plain stage tail from the same state; where a float32 step's time goes;
+    bf16 steps; the stage tail against the plain one in turns."""
+    from ugaitnet_tpu_torch.core.config import DataConfig, TrainConfig
+    from ugaitnet_tpu_torch.data.pipeline import preprocess_batch
+    from ugaitnet_tpu_torch.models.network import UGaitNet
+    from ugaitnet_tpu_torch.ops.cuda import conv3x3 as CV
+    from ugaitnet_tpu_torch.ops.cuda import stage_tail as ST
+    from ugaitnet_tpu_torch.ops.cuda import triplet_kernel as K
+    from ugaitnet_tpu_torch.train.train_step import (Batch, init_state,
+                                                     make_train_step)
+    card, dcfg = ctx.card, DataConfig()
     mcfg, tcfg = flagship_cfg(), TrainConfig()
     check(tcfg.triplet_kind == "batch_all", "default triplet kind")
     model = UGaitNet(mcfg, seed=0)
@@ -5926,11 +5968,9 @@ def main():
     for i in range(nsteps):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        r = dict(raw)
-        r["raw_of"] = raw["raw_of"] ^ i
-        r["raw_gray"] = raw["raw_gray"] ^ i
-        vols, flags, labels = preprocess_batch(r, *mods, 3, True, dcfg,
-                                               generator=mask_gen)
+        vols, flags, labels = preprocess_batch(
+            perturbed(raw, i), *PREPROCESS, 3, True, dcfg,
+            generator=mask_gen)
         batch = Batch(tuple(vols), tuple(flags), labels)
         if i == nsteps - 1:     # the state the plain step starts from
             before = (copy.deepcopy(state.model.state_dict()),
@@ -5964,6 +6004,7 @@ def main():
     sig_err, sig_faults = kernel_vs_plain_step(
         "train", mcfg, tcfg, before, batch, kstore, losses[-1])
     tail_step = tail_vs_plain_step(mcfg, tcfg, before, batch)
+    del before
 
     # where the time of a float32 step goes (launch counts already read)
     def one_step():
@@ -6003,8 +6044,39 @@ def main():
     tail_ab = tail_ab_steps({"float32": mcfg, "bfloat16": bf_cfg}, tcfg,
                             batch, card)
 
-    # ---- 4. checks on the full-width forward --------------------------------
-    model = state.model
+    def isolated_step_ms():
+        """This phase's step loop (raw batch on the card, augmenting
+        preprocess, synchronized steps), median of steps 3-7."""
+        st = init_state(UGaitNet(mcfg, seed=0), tcfg)
+        fn = make_train_step(mcfg, tcfg)
+        gen = torch.Generator().manual_seed(0)
+        times = []
+        for i in range(nsteps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            v, f, lab = preprocess_batch(perturbed(raw, i), *PREPROCESS, 3,
+                                         True, dcfg, generator=gen)
+            fn(st, Batch(tuple(v), tuple(f), lab))
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(times[warmup:]))
+
+    return {"train_step_ms": train_ms, "train_step_bf16_ms": bf_train_ms,
+            "train_device_busy_ms": busy / 2e3, "train_wall_ms": wall / 2e3,
+            "train_peak_gb": peak_gb,
+            "signature_grad_rel_err": {"kernel": sig_err, **sig_faults},
+            "train_tail_step": tail_step, "train_tail_ab": tail_ab,
+            "_launches": launches, "_bf_conv": bf_conv, "_state": state,
+            "_isolated_step_ms": isolated_step_ms}
+
+
+def checks_phase(ctx):
+    """4. On phase 3's trained flagship (which this phase takes): use_flag
+    = 0 against a noise-filled input, and the card's forward against the
+    CPU's through the sign_max merge."""
+    from ugaitnet_tpu_torch.core.config import DataConfig
+    dev, dcfg = torch.device("cuda"), DataConfig()
+    model = ctx.results["3"].pop("_state").model
     model.eval()
     g = torch.Generator(device=dev).manual_seed(3)
     of = torch.randn(4, 25, 60, 60, 2, device=dev, generator=g)
@@ -6016,331 +6088,325 @@ def main():
         check(torch.equal(a, b), "use_flag=0 differs from noise input")
         print("missing modality: use_flag=0 signature == noise-input "
               "signature (exact)")
-    fwd = forward_vs_cpu(model, mods, dcfg)
+    fwd = forward_vs_cpu(model, PREPROCESS, dcfg)
+    return {"card_vs_cpu": {"tf32_off": fwd[False], "tf32_on": fwd[True]}}
 
-    # ---- 5. eval and 6. serve (no kernel of this repo on these paths) ----
-    del state, model, before
-    torch.cuda.empty_cache()
+
+def sets_phase(ctx):
+    """Phase 5's CASIA-B-shaped sets (``casia_sets``): in memory for
+    phases 5 and 6 (the last of them takes them), saved packed under the
+    work directory for phases 7, 8, 11 and 13."""
     t0 = time.perf_counter()
-    gallery_ds, probe_ds = casia_sets()
-    print(f"synthetic CASIA-B-shaped sets: 2 x {len(gallery_ds)} clips in "
+    gallery, probe = casia_sets()
+    print(f"synthetic CASIA-B-shaped sets: 2 x {len(gallery)} clips in "
           f"{time.perf_counter() - t0:.1f} s")
-    K.reset_launch_counts()
-    eval_model = UGaitNet(flagship_cfg(), seed=0)
-    encode_tail = {}
-    with tail_counts(encode_tail):
-        eval_res = eval_phase(eval_model, gallery_ds, probe_ds, card)
-    print(f"stage-tail launches in phase 5 (encode): {encode_tail}")
-    check(encode_tail["branch_forwards"] > 0 and encode_tail["tail_bwd"] == 0
-          and encode_tail["tail_fwd"] == 2 * encode_tail["branch_forwards"],
-          f"phase 5 stage-tail launches {encode_tail}")
-    eval_res["tail_launches"] = encode_tail
-    del eval_model
-    serve_res = serve_phase(lambda dt: UGaitNet(flagship_cfg(dtype=dt),
-                                                seed=0),
-                            gallery_ds, probe_ds, card)
-    print(f"triplet kernel launches during eval and serve: "
-          f"{K.fwd_launches}, {K.bwd_launches} (not on these paths)")
-    serve_tail = serve_res["tail_launches_identify_raw"]
+    out = {"_gallery": gallery, "_probe": probe}
+    for name, ds in (("gallery", gallery), ("probe", probe)):
+        out[f"_{name}_dir"] = os.path.join(ctx.work, f"casia_{name}")
+        ds.save(out[f"_{name}_dir"])
+    return out
 
-    # ---- 7. the trainer through the CLIs ------------------------------------
-    sets = tempfile.mkdtemp(prefix="chip_smoke_sets_")
-    try:
-        gallery_dir = os.path.join(sets, "casia_gallery")
-        probe_dir = os.path.join(sets, "casia_probe")
-        gallery_ds.save(gallery_dir)
-        probe_ds.save(probe_dir)
-        del gallery_ds, probe_ds
-        gc.collect()
-        torch.cuda.empty_cache()
 
-        def isolated_step_ms():
-            """Phase 3's step loop (raw batch on the card, augmenting
-            preprocess, synchronized steps), median of steps 3-7."""
-            st = init_state(UGaitNet(mcfg, seed=0), tcfg)
-            fn = make_train_step(mcfg, tcfg)
-            gen = torch.Generator().manual_seed(0)
-            times = []
-            for i in range(nsteps):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                r = dict(raw)
-                r["raw_of"] = raw["raw_of"] ^ i
-                r["raw_gray"] = raw["raw_gray"] ^ i
-                v, f, lab = preprocess_batch(r, *mods, 3, True, dcfg,
-                                             generator=gen)
-                fn(st, Batch(tuple(v), tuple(f), lab))
-                torch.cuda.synchronize()
-                times.append((time.perf_counter() - t0) * 1e3)
-            return float(np.median(times[warmup:]))
+def batch_phase(ctx):
+    """Phase 12's global batch, phase 3's first augmented one (raw B = 40,
+    expand 3): in memory for phase 12 (which takes it), saved whole and
+    its first 40 rows for phase 12's ranks and phase 13."""
+    from ugaitnet_tpu_torch.core.config import DataConfig
+    from ugaitnet_tpu_torch.data.pipeline import preprocess_batch
+    work = os.path.join(ctx.work, "parallel")
+    os.makedirs(work, exist_ok=True)
+    _p12_setup()
+    vols, flags, labels = preprocess_batch(
+        raw_batch(40, 8, seed=2), *PREPROCESS, 3, True, DataConfig(),
+        generator=torch.Generator().manual_seed(0))
+    for name, rows in (("batch.pt", slice(None)), ("batch40.pt",
+                                                    slice(0, 40))):
+        torch.save({"volumes": [v[rows].cpu() for v in vols],
+                    "flags": [f[rows].cpu() for f in flags],
+                    "labels": labels[rows].cpu()},
+                   os.path.join(work, name))
+    return {"_batch": (vols, flags, labels)}
 
-        trainer_res = trainer_phase(card, os.path.join(sets, "train"),
-                                    gallery_dir, probe_dir,
-                                    isolated_step_ms, train_ms)
-        gc.collect()
-        torch.cuda.empty_cache()
 
-        # ---- 8. int8 gallery, int8 encode and export -------------------------
-        int8_res = int8_phase(card, sets, gallery_dir, probe_dir,
-                              trainer_res["experdir"], serve_res)
-        gc.collect()
-        torch.cuda.empty_cache()
+# what a phase reads: the card (nvidia-smi's name and power limit), the
+# work directory that phases write their sets, runs and artifacts under,
+# and the results of the phases already run, by name.  A result's keys that
+# start with "_" are for later phases, not for the JSON line.
+Context = collections.namedtuple("Context", "card work results")
 
-        # ---- 9. the 2D and 3D CNN branch families at full width ----------
-        K.reset_launch_counts()
-        branch_res = branch_phase(card)
-        conv_launches = {"triplet_fwd": K.fwd_launches,
-                         "triplet_bwd": K.bwd_launches}
-        check(conv_launches == {"triplet_fwd": 2 * BRANCH_STEPS,
-                                "triplet_bwd": 2 * BRANCH_STEPS},
-              f"triplet launches in phase 9's steps: {conv_launches}")
-        gc.collect()
-        torch.cuda.empty_cache()
 
-        # ---- 10. the rest of the model and loss surface -------------------
-        surface_res = surface_phase(card, flag_t["fwd_call_ms"]
-                                    + flag_t["bwd_call_ms"])
-        surface_launches = surface_res["launches"]
-        gc.collect()
-        torch.cuda.empty_cache()
+Phase = collections.namedtuple("Phase", "name fn needs sources key")
+TRAIN_SOURCES = ("triplet_kernel", "stage_tail")
+# every phase, in the order a whole run takes them; a phase names the
+# phases whose results it reads, the kernel sources it launches and the key
+# of its result in the JSON line (None: its keys go in as they are).
+# Phases 11, 12 and 14 come late so that the phases before them keep their
+# draws.
+PHASES = (
+    Phase("1", triplet_phase, (), ("triplet_kernel",), None),
+    Phase("1b", tail_phase, (), ("stage_tail",), "stage_tail"),
+    Phase("1c", conv_phase, (), ("conv3x3",), "conv3x3"),
+    Phase("1d", probe_phase, (), ("probes",), "probes"),
+    Phase("1e", lambda ctx: grad_kernel_phase(ctx, wgrad_kernel()), (),
+          ("conv3d_wgrad",), "conv3d_wgrad"),
+    Phase("1f", lambda ctx: grad_kernel_phase(ctx, dgrad_kernel()), (),
+          ("conv3d_dgrad",), "conv3d_dgrad"),
+    Phase("2", embed_phase, (), ("stage_tail", "conv3x3"), None),
+    Phase("3", train_phase, (), TRAIN_SOURCES, None),
+    Phase("4", checks_phase, ("3",), ("stage_tail",), None),
+    Phase("sets", sets_phase, (), (), None),
+    Phase("5", eval_phase, ("sets",), ("stage_tail",), "eval"),
+    Phase("6", serve_phase, ("sets",), ("stage_tail", "conv3x3"), "serve"),
+    Phase("7", trainer_phase, ("3", "sets"), TRAIN_SOURCES, "trainer"),
+    Phase("8", int8_phase, ("sets", "6", "7"), ("stage_tail",), "int8"),
+    Phase("9", branch_phase, (),
+          ("triplet_kernel", "conv3d_wgrad", "conv3d_dgrad"), "branches"),
+    Phase("10", surface_phase, ("1",), TRAIN_SOURCES, "surface"),
+    Phase("11", joint_phase, ("sets", "7"), TRAIN_SOURCES, "joint"),
+    Phase("batch", batch_phase, (), (), None),
+    Phase("12", parallel_phase, ("batch",), TRAIN_SOURCES, "parallel"),
+    Phase("13", tp_pp_phase, ("sets", "7", "batch"), TRAIN_SOURCES,
+          "tp_pp"),
+    Phase("14", convergence_phase, (), TRAIN_SOURCES + ("conv3x3",),
+          "convergence"),
+)
 
-        # ---- 11. joint training, warm starts, the sweep (last, so the
-        # draws of phases 1-10 do not move) ----------------------------
-        t0 = time.perf_counter()
-        joint_res = joint_phase(
-            card, os.path.join(sets, "joint"),
-            os.path.join(sets, "train", "casia_train"), gallery_dir,
-            probe_dir, trainer_res["fit_ms_per_step_steady"])
-        joint_res["phase_s"] = time.perf_counter() - t0
-        joint_launches = joint_res["launches"]
-        print(f"phase 11: {joint_res['phase_s']:.1f} s; triplet launches in "
-              f"the joint run {joint_launches} [{card}]")
-        gc.collect()
-        torch.cuda.empty_cache()
 
-        # ---- 12. multi-device training over torch.distributed (ranks in
-        # processes of their own; this one holds no model while they run)
-        parallel_res = parallel_phase(card, os.path.join(sets, "parallel"))
-        parallel_launches = parallel_res["launches"]
-        gc.collect()
-        torch.cuda.empty_cache()
+def plan(names=()):
+    """The phases to run, in the registry's order: those named (every
+    phase when none is) and the phases they need.  Raises ValueError, with
+    the known names, on a name the registry lacks."""
+    by_name = {p.name: p for p in PHASES}
+    unknown = [n for n in names if n not in by_name]
+    if unknown:
+        raise ValueError(f"unknown phase {', '.join(unknown)}; the phases: "
+                         f"{', '.join(by_name)}")
+    chosen, todo = set(), list(names) or list(by_name)
+    while todo:
+        n = todo.pop()
+        if n not in chosen:
+            chosen.add(n)
+            todo.extend(by_name[n].needs)
+    return [p for p in PHASES if p.name in chosen]
 
-        # ---- 13. tensor and pipeline parallelism, mesh serving, evaluate
-        # --dp, trace profiling (last; reuses phase 12's batch)
-        with open(os.path.join(sets, "train", "results.json")) as f:
-            one_eval = json.load(f)[os.path.basename(probe_dir)]
-        tp_res = tp_pp_phase(card, os.path.join(sets, "parallel"),
-                             trainer_res["experdir"], gallery_dir, probe_dir,
-                             one_eval)
-        tp_launches = tp_res["launches"]
-        gc.collect()
-        torch.cuda.empty_cache()
 
-        # ---- 14. convergence to Rank-1: the tiny twin and the flagship
-        # trained on synthetic identities, scored through the open-world
-        # protocol (last, with its own seeds)
-        p14 = convergence_phase(card, os.path.join(sets, "convergence"))
-        p14_launches = p14["launches"]
-    finally:
-        shutil.rmtree(sets, ignore_errors=True)
+def kernel_entries(r):
+    """The kernels JSON line from the results ``r`` of the phases that ran:
+    an entry for each kernel whose phase 1-1f ran, without any count whose
+    phase did not run."""
+    def ran(*paths):
+        return {k: f() for k, p, f in paths if p in r}
 
-    # launches: the trainer's fit (this slice's main path); by path, phase
-    # 3's train steps too
-    fit_launches = trainer_res["launches_fit"]
-    kernels = [
-        {"name": "triplet_fwd", "route": "cuda", "source": SRC,
-         "replaces": f"{PALLAS}:159", "launches": fit_launches["triplet_fwd"],
-         "launches_by_path": {"train_step": launches["triplet_fwd"],
-                              "fit": fit_launches["triplet_fwd"],
-                              "conv_branch_steps":
-                                  conv_launches["triplet_fwd"],
-                              "surface_steps":
-                                  surface_launches["triplet_fwd"],
-                              "joint_fit": joint_launches["triplet_fwd"],
-                              "parallel_rank_step":
-                                  parallel_launches["triplet_fwd"],
-                              "tp_rank_step":
-                                  tp_launches["tp_rank_step"][0],
-                              "pp_step": tp_launches["pp_step"][0],
-                              "convergence_phase": {
-                                  p: p14_launches[p]["triplet_fwd"]
-                                  for p in P14_FITS}},
-         "max_abs_err": fwd_err, "ms": flag_t["fwd_ms"],
-         "plain_ms": flag_t["plain_fwd_ms"],
-         "bound_ms": flag_t["fwd_bound"][0],
-         "bound_by": flag_t["fwd_bound"][1],
-         "library_ms": None},
-        {"name": "triplet_bwd", "route": "cuda", "source": SRC,
-         "replaces": f"{PALLAS}:187", "launches": fit_launches["triplet_bwd"],
-         "launches_by_path": {"train_step": launches["triplet_bwd"],
-                              "fit": fit_launches["triplet_bwd"],
-                              "conv_branch_steps":
-                                  conv_launches["triplet_bwd"],
-                              "surface_steps":
-                                  surface_launches["triplet_bwd"],
-                              "joint_fit": joint_launches["triplet_bwd"],
-                              "parallel_rank_step":
-                                  parallel_launches["triplet_bwd"],
-                              "tp_rank_step":
-                                  tp_launches["tp_rank_step"][1],
-                              "pp_step": tp_launches["pp_step"][1],
-                              "convergence_phase": {
-                                  p: p14_launches[p]["triplet_bwd"]
-                                  for p in P14_FITS}},
-         "max_abs_err": bwd_err, "ms": flag_t["bwd_ms"],
-         "plain_ms": flag_t["plain_bwd_ms"],
-         "bound_ms": flag_t["bwd_bound"][0],
-         "bound_by": flag_t["bwd_bound"][1],
-         "library_ms": None},
-    ]
+    kernels = []
+    for i, d in enumerate(("fwd", "bwd")):
+        name = f"triplet_{d}"
+        if "1" not in r:
+            break
+        flag_t = r["1"]["triplet_times"]["flagship"]
+        # launches: the trainer's fit (this slice's main path); by path,
+        # phase 3's train steps too
+        kernels.append({
+            "name": name, "route": "cuda", "source": SRC,
+            "replaces": f"{PALLAS}:{(159, 187)[i]}",
+            **ran(("launches", "7", lambda: r["7"]["launches_fit"][name])),
+            "launches_by_path": ran(
+                ("train_step", "3", lambda: r["3"]["_launches"][name]),
+                ("fit", "7", lambda: r["7"]["launches_fit"][name]),
+                ("conv_branch_steps", "9",
+                 lambda: r["9"]["_triplet_launches"][name]),
+                ("surface_steps", "10", lambda: r["10"]["launches"][name]),
+                ("joint_fit", "11", lambda: r["11"]["launches"][name]),
+                ("parallel_rank_step", "12",
+                 lambda: r["12"]["launches"][name]),
+                ("tp_rank_step", "13",
+                 lambda: r["13"]["launches"]["tp_rank_step"][i]),
+                ("pp_step", "13", lambda: r["13"]["launches"]["pp_step"][i]),
+                ("convergence_phase", "14", lambda: {
+                    p: r["14"]["launches"][p][name] for p in P14_FITS})),
+            "max_abs_err": r["1"][f"_{d}_err"], "ms": flag_t[f"{d}_ms"],
+            "plain_ms": flag_t[f"plain_{d}_ms"],
+            "bound_ms": flag_t[f"{d}_bound"][0],
+            "bound_by": flag_t[f"{d}_bound"][1], "library_ms": None})
     # the stage tail: times at the flagship's stage 1 in float32 (every
     # shape and dtype under "by_shape"); launches of the fit, by path phase
     # 3's steps, phase 5's encode, phase 6's identify_raw (one per bucket)
     # and phase 8's fp32 artifact (one bucket-128 encode, a fresh process)
-    fit_tail = trainer_res["tail_launches_fit"]
-    art_tail = int8_res["export_tail_launches"]["fp32"]
-    s1 = tail_res["times"]["stage 1 float32"]
-    for d in ("fwd", "bwd"):
+    for i, d in enumerate(("fwd", "bwd")):
+        name = f"tail_{d}"
+        if "1b" not in r:
+            break
+        s1 = r["1b"]["times"]["stage 1 float32"]
         kernels.append({
-            "name": f"tail_{d}", "route": "cuda", "source": TAIL_SRC,
-            "replaces": TAIL_PALLAS, "launches": fit_tail[f"tail_{d}"],
-            "launches_by_path": {
-                "train_step": launches[f"tail_{d}"],
-                "fit": fit_tail[f"tail_{d}"],
-                "encode": encode_tail[f"tail_{d}"],
-                "identify_raw": serve_tail[f"tail_{d}"],
-                "artifact_encode": art_tail[0 if d == "fwd" else 1],
-                "convergence_phase": {p: v[f"tail_{d}"]
-                                      for p, v in p14_launches.items()}},
-            "max_abs_err": tail_res["max_abs_err"][f"tail_{d}"],
+            "name": name, "route": "cuda", "source": TAIL_SRC,
+            "replaces": TAIL_PALLAS,
+            **ran(("launches", "7",
+                   lambda: r["7"]["tail_launches_fit"][name])),
+            "launches_by_path": ran(
+                ("train_step", "3", lambda: r["3"]["_launches"][name]),
+                ("fit", "7", lambda: r["7"]["tail_launches_fit"][name]),
+                ("encode", "5", lambda: r["5"]["tail_launches"][name]),
+                ("identify_raw", "6",
+                 lambda: r["6"]["tail_launches_identify_raw"][name]),
+                ("artifact_encode", "8",
+                 lambda: r["8"]["export_tail_launches"]["fp32"][i]),
+                ("convergence_phase", "14", lambda: {
+                    p: v[name] for p, v in r["14"]["launches"].items()})),
+            "max_abs_err": r["1b"]["max_abs_err"][name],
             "ms": s1[f"{d}_ms"], "plain_ms": s1[f"plain_{d}_ms"],
             "bound_ms": s1[f"{d}_bound"][0], "bound_by": s1[f"{d}_bound"][1],
             "library_ms": None,
             "by_shape": {k: {"ms": v[f"{d}_ms"],
                              "plain_ms": v[f"plain_{d}_ms"],
                              "bound_ms": v[f"{d}_bound"][0]}
-                         for k, v in tail_res["times"].items()}})
+                         for k, v in r["1b"]["times"].items()}})
     # the conv kernel: times at a_conv6 (the _p1_kernel shape; a_conv2's,
     # the _p2_kernel shape, under "by_shape"); launches of phase 2's bf16
     # embed (the main path of this slice), by path the train steps and the
     # bf16 service's identify_raw (one per bucket)
-    c6 = conv_res["times"]["a_conv6"]
-    kernels.append({
-        "name": "conv3x3_fwd", "route": "cuda", "source": CONV_SRC,
-        "replaces": CONV_PALLAS, "also_replaces": CONV_PALLAS_P2,
-        "launches": embed_conv["bfloat16"],
-        "launches_by_path": {
-            "embed_bf16": embed_conv["bfloat16"],
-            "embed_fp32": embed_conv["float32"],
-            "embed_forwards": iters + 1,
-            "train_step": launches["conv3x3"],
-            "train_step_bf16": bf_conv,
-            "identify_raw_bf16": serve_res["bf16_conv_route"]["launches"],
-            "identify_raw_calls": serve_res["bf16_conv_route"]["calls"],
-            "convergence_phase": {p: v["conv3x3"]
-                                  for p, v in p14_launches.items()}},
-        "max_abs_err": conv_res["max_abs_err"], "ms": c6["ms"],
-        "plain_ms": c6["plain_ms"], "bound_ms": c6["bound_ms"],
-        "bound_by": c6["bound_by"], "library_ms": c6["library_ms"],
-        "share_of_bound": c6["share_of_bound"],
-        "factor_to_library": c6["factor_to_library"],
-        "variant": c6["variant"],
-        "variant_launches": conv_res["variant_launches"],
-        "earlier_ms": c6["earlier_ms"],
-        "by_shape": conv_res["times"]})
-    mm = probe_res["mm"][1152]
-    kernels.append({
-        "name": "mm_fwd", "route": "cuda", "source": PROBES_SRC,
-        "replaces": MM_PALLAS,
-        "launches": probe_res["launches"]["mm_fwd"],
-        "launches_by_path": {"probe_phase": probe_res["launches"]["mm_fwd"]},
-        "max_abs_err": mm["max_abs_err"], "ms": mm["ms"],
-        "plain_ms": mm["plain_ms"], "bound_ms": mm["bound_ms"],
-        "bound_by": mm["bound_by"], "library_ms": mm["library_ms"],
-        "share_of_bound": mm["share_of_bound"],
-        "factor_to_library": mm["factor_to_library"],
-        "variant": mm["variant"],
-        "by_shape": {f"K={k}": {f: v[f] for f in (
-            "ms", "plain_ms", "bound_ms", "library_ms", "share_of_bound",
-            "factor_to_library")}
-            for k, v in probe_res["mm"].items()}})
-    cp = probe_res["copy"]
-    kernels.append({
-        "name": "scale2", "route": "cuda", "source": PROBES_SRC,
-        "replaces": COPY_PALLAS,
-        "launches": probe_res["launches"]["scale2"],
-        "launches_by_path": {"probe_phase": probe_res["launches"]["scale2"]},
-        "max_abs_err": cp["max_abs_err"], "ms": cp["ms"],
-        "plain_ms": cp["plain_ms"], "bound_ms": cp["bound_ms"],
-        "bound_by": cp["bound_by"], "library_ms": cp["library_ms"],
-        "share_of_bound": cp["share_of_bound"],
-        "factor_to_library": cp["factor_to_library"],
-        "variant": cp["variant"],
-        "variant_launches": probe_res["scale2_variant_launches"],
-        "scalar_ms": cp["scalar_ms"],
-        "with_transpose_ms": cp["with_transpose_ms"]})
-    # the 3D CNN's first-conv weight gradient: times of the two first convs
-    # together (each under "by_shape"); launches of phase 9's 3D CNN steps
-    wg3 = branch_res["conv3d"]["wgrad_launches"]
-    kernels.append({
-        "name": "conv3d_wgrad", "route": "cuda", "source": WGRAD_SRC,
-        "replaces": None, "launches": wg3,
-        "launches_by_path": {"branch_phase_3d_steps": wg3,
-                             "wgrad_phase": wgrad_res["launches"]},
-        "max_abs_err": wgrad_res["max_abs_err"], "ms": wgrad_res["ms"],
-        "plain_ms": wgrad_res["plain_ms"],
-        "bound_ms": wgrad_res["bound_ms"],
-        "bound_by": wgrad_res["bound_by"],
-        "library_ms": wgrad_res["library_ms"],
-        "share_of_bound": wgrad_res["share_of_bound"],
-        "factor_to_library": wgrad_res["factor_to_library"],
-        "by_shape": {k: {f: v[f] for f in (
-            "ms", "plain_ms", "bound_ms", "library_ms", "share_of_bound",
-            "factor_to_library", "max_rel_err")}
-            for k, v in wgrad_res["by_shape"].items()}})
-    # the 3D CNN's input gradient: the convs the rule takes, both branches
-    # (each conv under "by_conv"); launches of phase 9's 3D CNN steps
-    dg3 = branch_res["conv3d"]["dgrad_launches"]
-    kernels.append({
-        "name": "conv3d_dgrad", "route": "cuda", "source": DGRAD_SRC,
-        "replaces": None, "launches": dg3,
-        "launches_by_path": {"branch_phase_3d_steps": dg3,
-                             "dgrad_phase": dgrad_res["launches"]},
-        **{k: dgrad_res[k] for k in (
-            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms", "share_of_bound", "factor_to_library")},
-        "by_conv": {k: {f: v.get(f) for f in (
-            "ms", "plain_ms", "bound_ms", "library_ms", "share_of_bound",
-            "factor_to_library", "max_rel_err", "rule")}
-            for k, v in dgrad_res["by_conv"].items()}})
-    print(json.dumps({"card": card, "embed_ms_per_batch": embed,
-                      "train_step_ms": train_ms,
-                      "train_step_bf16_ms": bf_train_ms,
-                      "train_device_busy_ms": busy / 2e3,
-                      "train_wall_ms": wall / 2e3,
-                      "train_peak_gb": peak_gb,
-                      "triplet_times": times,
-                      "dist_rel_err": dist_err,
-                      "grad_rel_err": {k: {"kernel": v[2], **v[3]}
-                                       for k, v in results.items()},
-                      "signature_grad_rel_err": {"kernel": sig_err,
-                                                 **sig_faults},
-                      "card_vs_cpu": {"tf32_off": fwd[False],
-                                      "tf32_on": fwd[True]},
-                      "eval": eval_res, "serve": serve_res,
-                      "trainer": trainer_res, "int8": int8_res,
-                      "branches": branch_res, "surface": surface_res,
-                      "joint": joint_res, "parallel": parallel_res,
-                      "tp_pp": tp_res, "convergence": p14,
-                      "stage_tail": tail_res,
-                      "conv3x3": conv_res, "probes": probe_res,
-                      "conv3d_wgrad": wgrad_res,
-                      "conv3d_dgrad": dgrad_res,
-                      "embed_bf16_route": embed_route,
-                      "train_tail_step": tail_step,
-                      "train_tail_ab": tail_ab}))
+    if "1c" in r:
+        c6 = r["1c"]["times"]["a_conv6"]
+        kernels.append({
+            "name": "conv3x3_fwd", "route": "cuda", "source": CONV_SRC,
+            "replaces": CONV_PALLAS, "also_replaces": CONV_PALLAS_P2,
+            **ran(("launches", "2", lambda: r["2"]["_conv"]["bfloat16"])),
+            "launches_by_path": ran(
+                ("embed_bf16", "2", lambda: r["2"]["_conv"]["bfloat16"]),
+                ("embed_fp32", "2", lambda: r["2"]["_conv"]["float32"]),
+                ("embed_forwards", "2", lambda: EMBED_ITERS + 1),
+                ("train_step", "3", lambda: r["3"]["_launches"]["conv3x3"]),
+                ("train_step_bf16", "3", lambda: r["3"]["_bf_conv"]),
+                ("identify_raw_bf16", "6",
+                 lambda: r["6"]["bf16_conv_route"]["launches"]),
+                ("identify_raw_calls", "6",
+                 lambda: r["6"]["bf16_conv_route"]["calls"]),
+                ("convergence_phase", "14", lambda: {
+                    p: v["conv3x3"] for p, v in r["14"]["launches"].items()})),
+            "max_abs_err": r["1c"]["max_abs_err"],
+            **{k: c6[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                  "library_ms", "share_of_bound",
+                                  "factor_to_library", "variant")},
+            "variant_launches": r["1c"]["variant_launches"],
+            "earlier_ms": c6["earlier_ms"], "by_shape": r["1c"]["times"]})
+    if "1d" in r:
+        probe_res = r["1d"]
+        times = ("ms", "plain_ms", "bound_ms", "library_ms",
+                 "share_of_bound", "factor_to_library")
+        for name, res, replaces, more in (
+                ("mm_fwd", probe_res["mm"][1152], MM_PALLAS, {
+                    "by_shape": {f"K={k}": {f: v[f] for f in times}
+                                 for k, v in probe_res["mm"].items()}}),
+                ("scale2", probe_res["copy"], COPY_PALLAS, {
+                    "variant_launches": probe_res["scale2_variant_launches"],
+                    "scalar_ms": probe_res["copy"]["scalar_ms"],
+                    "with_transpose_ms":
+                        probe_res["copy"]["with_transpose_ms"]})):
+            n = probe_res["launches"][name]
+            kernels.append({
+                "name": name, "route": "cuda", "source": PROBES_SRC,
+                "replaces": replaces, "launches": n,
+                "launches_by_path": {"probe_phase": n},
+                **{k: res[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                       "bound_ms", "bound_by", "library_ms",
+                                       "share_of_bound", "factor_to_library",
+                                       "variant")}, **more})
+    # the 3D CNN's first-conv weight gradient (times of the two first convs
+    # together, each under "by_shape") and its input gradient (the convs
+    # the rule takes, both branches, each conv under "by_conv"); launches
+    # of phase 9's 3D CNN steps
+    for ph, g, src, by, extra in (
+            ("1e", "wgrad", WGRAD_SRC, "by_shape", ()),
+            ("1f", "dgrad", DGRAD_SRC, "by_conv", ("rule",))):
+        if ph not in r:
+            continue
+        res = r[ph]
+        kernels.append({
+            "name": f"conv3d_{g}", "route": "cuda", "source": src,
+            "replaces": None,
+            **ran(("launches", "9",
+                   lambda: r["9"]["conv3d"][f"{g}_launches"])),
+            "launches_by_path": ran(
+                ("branch_phase_3d_steps", "9",
+                 lambda: r["9"]["conv3d"][f"{g}_launches"]),
+                (f"{g}_phase", ph, lambda: res["launches"])),
+            **{k: res[k] for k in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "share_of_bound", "factor_to_library")},
+            by: {k: {f: v.get(f) for f in (
+                "ms", "plain_ms", "bound_ms", "library_ms", "share_of_bound",
+                "factor_to_library", "max_rel_err") + extra}
+                for k, v in res[by].items()}})
+    return kernels
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(
+        description=__doc__.split("\n\n")[0],
+        formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--phase", default="",
+                    help="comma-separated phases to run (after the phases "
+                    "they need); every phase when left out")
+    args = ap.parse_args(argv)
+    named = [n for n in args.phase.split(",") if n]
+    try:
+        order = plan(named)
+    except ValueError as e:
+        ap.error(str(e))
+    if not torch.cuda.is_available():
+        sys.exit("chip_smoke: no CUDA device")
+    t_start = time.perf_counter()
+    from ugaitnet_tpu_torch.ops.cuda import build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    print(f"card: {card}")
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"python {sys.version.split()[0]}")
+
+    # one nvcc per source the chosen phases launch, all started together,
+    # then load them
+    sources = tuple(dict.fromkeys(s for p in order for s in p.sources))
+    if sources:
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(len(sources)) as pool:
+            list(pool.map(build.build, sources))
+        for name in sources:
+            build.load(name)
+        print(f"kernel build ({', '.join(sources)}, in parallel): "
+              f"{time.perf_counter() - t0:.1f} s")
+    # the host gather's library, built here so no timed phase pays for it
+    from ugaitnet_tpu_torch.data import native
+    t0 = time.perf_counter()
+    check(native.get_lib() is not None,
+          "the native gather did not build (host C++ compiler)")
+    print(f"native gather build: {time.perf_counter() - t0:.1f} s "
+          f"({native.LIB_PATH})")
+    if sources:
+        ptxas_report(build.BUILD_DIR, sources)
+
+    ctx = Context(card, tempfile.mkdtemp(prefix="chip_smoke_sets_"), {})
+    try:
+        for p in order:
+            if named and p.name not in named:
+                print(f"phase {p.name}: run first, as --phase {args.phase} "
+                      f"needs it")
+            ctx.results[p.name] = p.fn(ctx)
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(ctx.work, ignore_errors=True)
+
+    out = {"card": card}
+    for p in order:
+        res = {k: v for k, v in ctx.results[p.name].items()
+               if not k.startswith("_")}
+        out.update({p.key: res} if p.key else res)
+    print(json.dumps(out))
     print(f"wall time {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": kernel_entries(ctx.results)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

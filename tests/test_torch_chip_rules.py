@@ -2,7 +2,8 @@
 (``SignMaxTap``, ``sign_max_rule``, ``passes``), exercised on the CPU: a
 second CPU forward stands in for the card, with its merge inputs moved by
 hand at chosen elements.  The tiny two-branch flagship (channels (4, 4, 8),
-part_dim 8), B = 4, inputs from a numpy seed.
+part_dim 8), B = 4, inputs from a numpy seed.  And chip_smoke.py's phase
+registry (``plan``, ``--phase``, ``kernel_entries``), pure Python.
 """
 
 import copy
@@ -154,3 +155,54 @@ def test_sign_max_rule_fails_planted_faults(net, fault):
         assert r["branches"] == 0 and r["switched"] == 0
     for k in KEYS:
         assert not C.passes(r, k)
+
+
+EVERY_PHASE = ["1", "1b", "1c", "1d", "1e", "1f", "2", "3", "4", "sets", "5",
+               "6", "7", "8", "9", "10", "11", "batch", "12", "13", "14"]
+
+
+@pytest.mark.parametrize("phase, want", [
+    ("13", ["3", "sets", "7", "batch", "13"]),
+    ("", EVERY_PHASE),
+    ("1e,1e,1f", ["1e", "1f"]),
+    ("1d,1c", ["1c", "1d"]),
+    ("8", ["3", "sets", "6", "7", "8"]),
+    ("14", ["14"])])
+def test_phase_plan(phase, want):
+    """The named phases in the registry's order, after the phases they
+    need; every phase when none is named; a name named twice once."""
+    names = [n for n in phase.split(",") if n]
+    assert [p.name for p in C.plan(names)] == want
+
+
+@pytest.mark.parametrize("phase", ["99", "1g", "13,x"])
+def test_unknown_phase_is_refused_with_the_known_names(phase, capsys):
+    with pytest.raises(SystemExit) as e:
+        C.main(["--phase", phase])
+    assert e.value.code == 2
+    assert f"the phases: {', '.join(EVERY_PHASE)}" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("i", range(len(C.PHASES)))
+def test_needs_come_first(i):
+    """A phase's producers stand before it, so a plan in the registry's
+    order runs them first."""
+    before = [p.name for p in C.PHASES[:i]]
+    assert all(n in before for n in C.PHASES[i].needs)
+
+
+@pytest.mark.parametrize("ran", ["1e", "1f"])
+def test_kernel_entry_leaves_out_what_did_not_run(ran):
+    """A kernel whose phase ran alone gets no count from the phases that
+    did not run, not a zero."""
+    by = "by_shape" if ran == "1e" else "by_conv"
+    res = {k: 1.0 for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                            "library_ms", "share_of_bound",
+                            "factor_to_library")}
+    res.update(bound_by="bytes", launches=4, **{by: {"a": {"ms": 1.0}}})
+    entry, = C.kernel_entries({ran: res})
+    g = "wgrad" if ran == "1e" else "dgrad"
+    assert entry["name"] == f"conv3d_{g}" and "launches" not in entry
+    assert entry["launches_by_path"] == {f"{g}_phase": 4}
+    assert entry[by]["a"]["ms"] == 1.0
+    assert entry[by]["a"]["max_rel_err"] is None

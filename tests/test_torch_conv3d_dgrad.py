@@ -9,9 +9,10 @@ installed:
 On the CPU: the plain version against float64 autograd of ``F.conv3d`` at
 strides (1, 2, 2), (2, 2, 2), (1, 1, 1) and others, on ragged shapes with
 input rows and columns no output reads; the rule's refusals; the routed
-backward's dx, dW and db, with the rule forced (``engages`` replaced by
-``fits``, its rule without the device test), against ``F.conv3d``'s
-autograd, alone and through a whole ``Conv3DBranch``.
+backward's dx, dW and db, with the rule forced (``conv3d_route.engages``
+replaced by ``conv3d_route.fits``, the shared rule without the device
+test), against ``F.conv3d``'s autograd, alone and through a whole
+``Conv3DBranch``.
 
 On the card (``-m cuda``): dx against float64 at the cell's conv1 and
 conv2 and on ragged shapes, read as max |kernel - float64| / max |float64|
@@ -37,7 +38,7 @@ from ugaitnet_tpu_torch.ops.cuda import conv3d_wgrad as CW
 
 LIMIT = 1e-5
 CELL = {"of": 2, "gray": 1}
-ENGAGES = CD.engages          # the rule with its device test
+ENGAGES = R.engages           # the shared rule with its device test
 
 # (N, Ci, T, H, W, Co, kernel, stride): conv1 / conv2 cut down (a last row
 # and column no output reads at (1, 2, 2)), stride 1, stride 3, a 1 x 1 x 1
@@ -121,6 +122,12 @@ def test_wrapper_refuses_what_is_no_valid_conv():
         CD.conv3d_dgrad(gy.to("meta"), wt.to("meta"), size, stride)
 
 
+def dgrad_rule(x, w):
+    """The input gradient's rule but the device: the shared one and the
+    kernel's own."""
+    return R.fits(x, w) and CD.fits(x, w)
+
+
 def x_w(dtype=torch.float32, ndim=5, x_grad=True, channels_last=False,
         size=16):
     """x (2, 64, 16, 16, size) on the meta device, 2^19 elements at size
@@ -151,10 +158,11 @@ def test_rule(what):
         x, w = x_w(channels_last=True)
     if what == "no grad mode":
         with torch.no_grad():
-            assert not CD.fits(x, w)
+            assert not dgrad_rule(x, w)
     else:
-        assert CD.fits(x, w) is (what in ("takes", "no card"))
-    assert not CD.engages(x, w)       # no card here
+        assert dgrad_rule(x, w) is (what in ("takes", "no card"))
+    b = torch.zeros(w.shape[0], device="meta")
+    assert not R.hand_grads(x, w, b, 0)[0]        # no card here
 
 
 def test_chip_smoke_counts_the_convs_the_rule_takes():
@@ -201,9 +209,11 @@ def recorder(monkeypatch):
 
 @pytest.fixture
 def cpu_rule(monkeypatch):
-    """The input gradient's rule without its device test, so CPU tensors
-    engage: the Function then runs the plain version in its backward."""
-    monkeypatch.setattr(CD, "engages", CD.fits)
+    """The shared rule without its device test, so CPU tensors engage:
+    the Function then runs the plain version in its backward.  The weight
+    gradient's rule stays off, as it is on the CPU."""
+    monkeypatch.setattr(R, "engages", R.fits)
+    monkeypatch.setattr(CW, "fits", lambda x, w: False)
 
 
 def branch3d(ci, dtype=torch.float32, seed=0):
@@ -263,7 +273,7 @@ def test_rule_leaves_other_paths(cpu_rule, recorder, monkeypatch, what):
         with torch.no_grad():
             branch3d(2).eval()(clip(2))
     else:
-        monkeypatch.setattr(CD, "engages", ENGAGES)
+        monkeypatch.setattr(R, "engages", ENGAGES)
         branch3d(2)(clip(2).requires_grad_()).sum().backward()
     assert recorder == []
 
@@ -300,11 +310,12 @@ def test_routed_branch_gradients_on_the_cpu(monkeypatch, mod, rules):
     ci = CELL[mod]
     x = clip(ci)
     monkeypatch.setattr(CD, "MIN_TILES", 0)
+    monkeypatch.setattr(R, "engages", R.fits)
 
     def grads(dgrad, wgrad):
         b = branch3d(ci)
-        monkeypatch.setattr(CD, "engages", dgrad)
-        monkeypatch.setattr(CW, "engages", wgrad)
+        monkeypatch.setattr(CD, "fits", dgrad)
+        monkeypatch.setattr(CW, "fits", wgrad)
         xg = x.clone().requires_grad_()
         b(xg).square().sum().backward()
         return {"input": xg.grad, **{k: p.grad
@@ -422,8 +433,8 @@ def test_cuda_branch_step_hand_vs_cudnn(cuda, monkeypatch):
     x = clip(2, n=120).to(cuda)
 
     def step(dgrad, wgrad):
-        monkeypatch.setattr(CD, "engages", dgrad)
-        monkeypatch.setattr(CW, "engages", wgrad)
+        monkeypatch.setattr(CD, "fits", dgrad)
+        monkeypatch.setattr(CW, "fits", wgrad)
         b = branch3d(2).to(cuda)
         n0 = CD.launches
         b(x).square().sum().backward()
@@ -432,7 +443,7 @@ def test_cuda_branch_step_hand_vs_cudnn(cuda, monkeypatch):
             for p in b.parameters():
                 p -= 1e-3 * p.grad
         return grads, dict(b.named_parameters()), CD.launches - n0
-    hand, hp, nh = step(CD.engages, CW.engages)
+    hand, hp, nh = step(CD.fits, CW.fits)
     off = lambda *a: False
     ref, rp, nr = step(off, off)
     assert (nh, nr) == (len(taken(120)), 0) == (4, 0)

@@ -7,8 +7,9 @@ so the card tests run where only the port is installed:
 On the CPU: the plain version against ``torch.nn.grad.conv3d_weight`` in
 float64; the dispatch rule (which layers of ``Conv3DBranch`` engage, and
 that none does for ``Conv2DBranch``, bf16, eval, int8 or export), read
-with ``engages`` replaced by ``fits``, its rule without the device test;
-the autograd Function's gradients against ``F.conv3d``'s, the same way.
+with ``conv3d_route.engages`` replaced by ``conv3d_route.fits``, the shared
+rule without the device test, and the input gradient's rule off; the
+autograd Function's gradients against ``F.conv3d``'s, the same way.
 
 On the card (``-m cuda``): dW and db against float64 at the cell's shapes
 and on ragged ones, read as max |kernel - float64| / max |float64| against
@@ -27,6 +28,7 @@ from ugaitnet_tpu_torch.core.config import BranchConfig
 from ugaitnet_tpu_torch.models.branches import Conv2DBranch, Conv3DBranch
 from ugaitnet_tpu_torch.obsv import spans
 from ugaitnet_tpu_torch.ops import quantize as Q
+from ugaitnet_tpu_torch.ops.cuda import conv3d_dgrad as CD
 from ugaitnet_tpu_torch.ops.cuda import conv3d_route as R
 from ugaitnet_tpu_torch.ops.cuda import conv3d_wgrad as CW
 
@@ -107,9 +109,11 @@ def recorder(monkeypatch):
 
 @pytest.fixture
 def cpu_rule(monkeypatch):
-    """The rule without its device test, so CPU tensors engage: the
-    Function then runs the plain version in its backward."""
-    monkeypatch.setattr(CW, "engages", CW.fits)
+    """The shared rule without its device test, so CPU tensors engage: the
+    Function then runs the plain version in its backward.  The input
+    gradient's rule stays off, as it is on the CPU."""
+    monkeypatch.setattr(R, "engages", R.fits)
+    monkeypatch.setattr(CD, "fits", lambda x, w: False)
 
 
 def branch3d(ci, dtype=torch.float32, seed=0):
@@ -170,9 +174,9 @@ def test_rule_threshold(taps, engages):
     ci, kh, kw = taps
     w = torch.zeros((8, ci, 1, kh, kw), requires_grad=True)
     x = torch.zeros(1, ci, 2, 4, 4)
-    assert CW.fits(x, w) is engages
-    assert not CW.engages(x, w)
-    assert not CW.fits(x.double(), w.detach().double().requires_grad_())
+    assert (R.fits(x, w) and CW.fits(x, w)) is engages
+    assert not R.hand_grads(x, w, torch.zeros(8), 0)[1]     # no card here
+    assert not R.fits(x.double(), w.detach().double().requires_grad_())
 
 
 @pytest.mark.parametrize("mod", sorted(CELL))
@@ -182,9 +186,12 @@ def test_hand_path_gradients_on_the_cpu(monkeypatch, mod):
     ci = CELL[mod]
     x = clip(ci)
 
+    monkeypatch.setattr(R, "engages", R.fits)
+    monkeypatch.setattr(CD, "fits", lambda x, w: False)
+
     def grads(rule):
         b = branch3d(ci)
-        monkeypatch.setattr(CW, "engages", rule)
+        monkeypatch.setattr(CW, "fits", rule)
         b(x).square().sum().backward()
         return {k: p.grad for k, p in b.named_parameters()}
     hand, ref = grads(CW.fits), grads(lambda x, w: False)
@@ -314,7 +321,7 @@ def test_cuda_branch_step_hand_vs_cudnn(cuda, monkeypatch):
     x = clip(2, n=120).to(cuda)
 
     def step(rule):
-        monkeypatch.setattr(CW, "engages", rule)
+        monkeypatch.setattr(CW, "fits", rule)
         b = branch3d(2).to(cuda)
         n0 = CW.launches
         b(x).square().sum().backward()
@@ -323,7 +330,7 @@ def test_cuda_branch_step_hand_vs_cudnn(cuda, monkeypatch):
             for p in b.parameters():
                 p -= 1e-3 * p.grad
         return grads, dict(b.named_parameters()), CW.launches - n0
-    hand, hp, nh = step(CW.engages)
+    hand, hp, nh = step(CW.fits)
     ref, rp, nr = step(lambda x, w: False)
     assert (nh, nr) == (1, 0)
     for k in ref:

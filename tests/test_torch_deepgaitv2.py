@@ -40,8 +40,8 @@ from ugaitnet_tpu_torch.eval.encode import encode_dataset
 from ugaitnet_tpu_torch.models import deepgaitv2 as DG
 from ugaitnet_tpu_torch.models.network import UGaitNet
 from ugaitnet_tpu_torch.obsv import spans
+from ugaitnet_tpu_torch.ops.cuda import conv3d_dgrad as CD
 from ugaitnet_tpu_torch.ops.cuda import conv3d_route
-from ugaitnet_tpu_torch.ops.cuda import conv3d_wgrad as CW
 from ugaitnet_tpu_torch.train import train_step as TS
 
 torch.set_num_threads(1)
@@ -306,12 +306,14 @@ def test_benchmark_configs_build_what_they_built(name):
 
 def test_hand_wgrad_takes_cnn3d_conv0_and_nothing_of_deepgaitv2(
         monkeypatch):
-    """``Conv`` sends a conv to ``conv3d_route.conv3d`` where ``engages``
-    says so; with the rule read on CPU tensors (``CW.fits``), the 3D CNN's
-    ``conv0`` of each branch goes there in float32 training, and no conv
-    of DeepGaitV2 does, in float32 or bf16 (its convs are padded and
+    """``Conv`` sends a conv to ``conv3d_route.conv3d`` where
+    ``conv3d_route.hand_grads`` says so; with the shared rule read on CPU
+    tensors (``conv3d_route.fits``) and the input gradient's rule off, as
+    on the CPU, the 3D CNN's ``conv0`` of each branch goes there in
+    float32 training, and no conv of DeepGaitV2 does, in float32 or bf16 (its convs are padded and
     bias-free, and its 1x1x1 shortcuts would otherwise fit)."""
-    monkeypatch.setattr(CW, "engages", CW.fits)
+    monkeypatch.setattr(conv3d_route, "engages", conv3d_route.fits)
+    monkeypatch.setattr(CD, "fits", lambda x, w: False)
     taken = []
     real = conv3d_route.conv3d
     monkeypatch.setattr(conv3d_route, "conv3d", lambda x, w, b, s, hand: (

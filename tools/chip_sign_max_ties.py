@@ -40,9 +40,7 @@ def train(mcfg, tcfg, mods, dcfg, nsteps=7):
     raw = C.raw_batch(40, 8, seed=2)
     mask_gen = torch.Generator().manual_seed(0)
     for i in range(nsteps):
-        r = dict(raw)
-        r["raw_of"] = raw["raw_of"] ^ i
-        r["raw_gray"] = raw["raw_gray"] ^ i
+        r = C.perturbed(raw, i)
         vols, flags, labels = preprocess_batch(r, *mods, 3, True, dcfg,
                                                generator=mask_gen)
         state, _ = step(state, Batch(tuple(vols), tuple(flags), labels))
@@ -66,7 +64,7 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dcfg = DataConfig()
-    mods = (("of", "gray"), (2, 1), (100.0, 1.0), 2)
+    mods = C.PREPROCESS
     mcfg, tcfg = C.flagship_cfg(), TrainConfig()
     model = train(mcfg, tcfg, mods, dcfg)
     again = train(mcfg, tcfg, mods, dcfg).state_dict()

@@ -129,9 +129,9 @@ class Conv(nn.Module):
     3D conv with a bias trained in float32 on a card goes through
     ``conv3d_route.conv3d`` where a hand gradient kernel's rule takes it
     (``conv3d_route.hand_grads``): its weight and bias gradients with few
-    taps a output channel (``ops/cuda/conv3d_wgrad.py:engages``: the first
+    taps a output channel (``ops/cuda/conv3d_wgrad.py:fits``: the first
     conv of the 3D CNN), its input gradient where its input needs one and
-    is large enough (``ops/cuda/conv3d_dgrad.py:engages``: conv1-conv4)."""
+    is large enough (``ops/cuda/conv3d_dgrad.py:fits``: conv1-conv4)."""
 
     def __init__(self, ci: int, co: int, kernel: Sequence[int],
                  strides: Sequence[int], dtype: torch.dtype,

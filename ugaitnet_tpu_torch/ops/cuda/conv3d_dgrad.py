@@ -6,20 +6,17 @@ direct, non-GEMM engine far from the card's FFMA rate, and that of its
 stride-1 conv4 to an implicit GEMM 25x over its bound.  The kernel splits
 dx by stride phase into dense implicit GEMMs on the CUDA cores.  The
 autograd Function that routes each gradient of a conv is
-``ops/cuda/conv3d_route.py:conv3d``; ``engages`` says when its dx comes
-from here.
-
-``engages(x, weight)`` looks only at what the call can see: x on a
-card, and ``fits``: a 5-D float32 weight and a float32 x in the NCDHW
-layout (the layout whose rows the kernel copies a warp at a time), grad
-mode on with x requiring a gradient, no ``torch.compile`` / ``torch.export``
-trace, and ``shape_rule``: dx of at least ``MIN_TILES`` of the kernel's
-128 x 64 tiles.  That is the shape rule that per-conv timings on an H100
+``ops/cuda/conv3d_route.py:conv3d``; where ``conv3d_route.hand_grads``
+finds what both hand kernels ask (a VALID float32 conv with a bias on a
+card, in grad mode, outside a compile / export trace), ``fits`` says when
+its dx comes from here: x requires a gradient, in the NCDHW layout (the
+layout whose rows the kernel copies a warp at a time), and
+``shape_rule``: dx of at least ``MIN_TILES`` of the kernel's 128 x 64
+tiles.  That is the shape rule that per-conv timings on an H100
 set (``chip_smoke.py`` phase 1f, the 3D CNN's conv1-conv5 at N = 120): the
 kernel beat cuDNN at conv1-conv4 (dx of 16,905, 6,654, 1,350 and 120 tiles)
 by 2.3x, 1.2x, 1.3x and 2.7x, and lost at conv5 (15 tiles: 8 CTAs on a card
-of 132 SMs) by 1.7x.  Padding is the router's to refuse
-(``ops/cuda/conv3d_route.py:hand_grads``).
+of 132 SMs) by 1.7x.
 
 ``conv3d_dgrad(gy, weight, size, stride)`` takes gy (N, Co, To, Ho, Wo)
 float32 in whatever strides it has and returns dx (N, Ci, *size),
@@ -134,17 +131,6 @@ def shape_rule(x_shape: Sequence[int]) -> bool:
 
 
 def fits(x: torch.Tensor, weight: torch.Tensor) -> bool:
-    """The rule of ``engages`` but for the device: a 5-D float32 weight, a
-    float32 NCDHW x that needs a gradient, grad mode on, no compile /
-    export trace, ``shape_rule``."""
-    return (weight.ndim == 5 and x.dtype == torch.float32
-            and weight.dtype == torch.float32 and torch.is_grad_enabled()
-            and x.requires_grad and x.is_contiguous()
-            and shape_rule(x.shape)
-            and not torch.compiler.is_compiling())
-
-
-def engages(x: torch.Tensor, weight: torch.Tensor) -> bool:
-    """Whether a conv of x with ``weight`` takes the hand input gradient:
-    on a card, where ``fits`` says so."""
-    return x.is_cuda and fits(x, weight)
+    """This kernel's own rule, past ``conv3d_route.hand_grads``' shared
+    one: an NCDHW x that needs a gradient, ``shape_rule``."""
+    return x.requires_grad and x.is_contiguous() and shape_rule(x.shape)

@@ -3,10 +3,12 @@ take: dx from ``conv3d_dgrad`` (``csrc/conv3d_dgrad.cu``), dW and db from
 ``conv3d_wgrad`` (``csrc/conv3d_wgrad.cu``).
 
 ``hand_grads(x, weight, bias, padding)`` is where the two kernels' rules are
-read, once a call: (dx, dW and db) from the hand kernels, by each kernel's
-``engages``.  A padded conv, or one without a bias, takes neither (the
-kernels compute VALID convs; DeepGaitV2's padded, bias-free convs and its
-1 x 1 x 1 shortcuts stay on cuDNN).
+read, once a call: (dx, dW and db) from the hand kernels.  What both
+kernels ask is checked here, once: a VALID conv with a bias (the kernels
+compute VALID convs; DeepGaitV2's padded, bias-free convs and its 1 x 1 x 1
+shortcuts stay on cuDNN) and ``engages``: x on a card, and ``fits``: a 5-D
+weight, float32 x and weight, grad mode on, no ``torch.compile`` /
+``torch.export`` trace.  Then each kernel's own ``fits`` decides.
 
 ``conv3d(x, weight, bias, stride, hand)`` is cuDNN's forward, and a backward
 that takes each gradient from the route ``hand`` fixed at the forward and
@@ -25,14 +27,28 @@ from ugaitnet_tpu_torch.ops.cuda import conv3d_dgrad as CD
 from ugaitnet_tpu_torch.ops.cuda import conv3d_wgrad as CW
 
 
+def fits(x: torch.Tensor, weight: torch.Tensor) -> bool:
+    """What both kernels ask of a conv but its device: a 5-D weight,
+    float32 x and weight, grad mode on, no compile / export trace."""
+    return (weight.ndim == 5 and x.dtype == torch.float32
+            and weight.dtype == torch.float32 and torch.is_grad_enabled()
+            and not torch.compiler.is_compiling())
+
+
+def engages(x: torch.Tensor, weight: torch.Tensor) -> bool:
+    """Whether a conv of x with ``weight`` may take a hand gradient: on a
+    card, where ``fits`` says so."""
+    return x.is_cuda and fits(x, weight)
+
+
 def hand_grads(x: torch.Tensor, weight: torch.Tensor,
                bias: Optional[torch.Tensor],
                padding: int) -> Tuple[bool, bool]:
     """Whether dx, and dW with db, of the conv of x with ``weight`` come
     from the hand kernels."""
-    if padding != 0 or bias is None:
+    if padding != 0 or bias is None or not engages(x, weight):
         return False, False
-    return CD.engages(x, weight), CW.engages(x, weight)
+    return CD.fits(x, weight), CW.fits(x, weight)
 
 
 class _Conv3d(torch.autograd.Function):

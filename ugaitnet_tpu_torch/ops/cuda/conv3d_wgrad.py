@@ -5,13 +5,11 @@ cuDNN sends the weight gradient of the 3D CNN's first conv (few input
 channels: 2 optical-flow or 1 gray, 3 x 5 x 5 taps, stride 1 x 2 x 2) to a
 direct, grouped kernel far from the card's FFMA rate.  The autograd
 Function that routes each gradient of a conv is
-``ops/cuda/conv3d_route.py:conv3d``; ``engages`` says when its dW and db
-come from here.
-
-``engages(x, weight)`` looks only at what the call can see: x on a card,
-and ``fits``: a 5-D weight, float32 tensors, grad mode on with the weight
-requiring a gradient, no ``torch.compile`` / ``torch.export`` trace, and at
-most ``MAX_TAPS`` taps a output channel (Ci kT kH kW): the kernel holds
+``ops/cuda/conv3d_route.py:conv3d``; where ``conv3d_route.hand_grads``
+finds what both hand kernels ask (a VALID float32 conv with a bias on a
+card, in grad mode, outside a compile / export trace), ``fits`` says when
+its dW and db come from here: the weight requires a gradient and has at
+most ``MAX_TAPS`` taps a output channel (Ci kT kH kW).  The kernel holds
 all of a block's taps in one CTA, and deeper layers run well on cuDNN's
 implicit GEMM.
 
@@ -132,16 +130,7 @@ def conv3d_wgrad(x: torch.Tensor, gy: torch.Tensor, kernel: Sequence[int],
 
 
 def fits(x: torch.Tensor, weight: torch.Tensor) -> bool:
-    """The rule of ``engages`` but for the device: a 5-D float32 weight of
-    at most MAX_TAPS taps a output channel and a float32 x, grad mode on
-    with the weight requiring a gradient, no compile / export trace."""
-    return (weight.ndim == 5 and x.dtype == torch.float32
-            and weight.dtype == torch.float32 and torch.is_grad_enabled()
-            and weight.requires_grad and weight[0].numel() <= MAX_TAPS
-            and not torch.compiler.is_compiling())
-
-
-def engages(x: torch.Tensor, weight: torch.Tensor) -> bool:
-    """Whether a conv of x with ``weight`` takes the hand weight gradient:
-    on a card, where ``fits`` says so."""
-    return x.is_cuda and fits(x, weight)
+    """This kernel's own rule, past ``conv3d_route.hand_grads``' shared
+    one: a weight that requires a gradient, of at most MAX_TAPS taps a
+    output channel."""
+    return weight.requires_grad and weight[0].numel() <= MAX_TAPS
